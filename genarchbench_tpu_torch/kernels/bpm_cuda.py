@@ -4,6 +4,10 @@
 The kernel replaces the JAX package's Pallas kernel
 (genarchbench_tpu/kernels/bpm_pallas.py::_kernel); the plain version is
 a port of its XLA formulation (kernels/bpm.py::_bpm_distance_device).
+For W <= 32 the kernel is a wavefront: a pair takes a segment of
+`segment_width(W)` lanes of a warp, one pattern word a lane, and lane w
+advances text step k - w at iteration k.  Wider patterns take a generic
+kernel, one thread per pair.
 
 Layout, pairs-minor so that a warp's loads coalesce:
   peq  (W, 4, B) int32  the uint32 match masks of compile_peq, as bits
@@ -33,10 +37,18 @@ def _lib():
     lib = _build.library()
     fn = lib.genarch_bpm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def segment_width(W: int) -> int:
+    """Lanes a pair takes in the wavefront kernel: the power of two at or
+    above W; 0 outside 1..32 (the generic kernel)."""
+    if not 1 <= W <= W32:
+        return 0
+    return 1 << (W - 1).bit_length()
 
 
 def _check(peq, plen, text, tlen):
@@ -74,14 +86,17 @@ def bpm_distance(peq: torch.Tensor, plen: torch.Tensor, text: torch.Tensor,
     out = torch.empty(B, dtype=torch.int32, device=peq.device)
     if B == 0:
         return out
-    # Pv/Mv scratch for patterns wider than the register kernels (W > 32)
-    scratch = torch.empty((2, W, B) if W > W32 else (1,), dtype=torch.int32,
-                          device=peq.device)
+    # the wavefront kernel's text packed as 4-step nibble words, or the
+    # generic kernel's Pv/Mv (W > 32)
+    S = segment_width(W)
+    scratch = (torch.empty(((T + 3) // 4, B), dtype=torch.int16,
+                           device=peq.device) if S else
+               torch.empty((2, W, B), dtype=torch.int32, device=peq.device))
     lib = _lib()
     stream = torch.cuda.current_stream(peq.device).cuda_stream
     err = lib.genarch_bpm(peq.data_ptr(), text.data_ptr(), plen.data_ptr(),
                           tlen.data_ptr(), out.data_ptr(),
-                          scratch.data_ptr(), B, T, W, stream)
+                          scratch.data_ptr(), B, T, W, S, stream)
     LAUNCHES += 1
     _build.check(err, "bpm kernel")
     return out

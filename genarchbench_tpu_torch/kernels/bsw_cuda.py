@@ -13,6 +13,12 @@ Inputs, one group of L pairs per leading index (L = 8, or 16 for -i8):
 Rows past R are not run, and columns past C2 do not exist (callers
 size R to the longest reference and C2 past the longest query).  Six
 (G, L) int32 tensors come back: score, tle, qle, max_off, gscore, gtle.
+
+The kernel runs one block per group, one warp per pair, the blocks
+taking the groups longest first (`group_order`).  Rows of up to
+32 * MAX_ROW_K columns live in registers, K = ceil(C2 / 32) columns a
+thread; wider rows take a variant that keeps them in shared memory
+(`kernel_variant`).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ NEG = -(1 << 28)
 BIG = 1 << 28
 AMBIG_SENTINEL = 15
 
+MAX_ROW_K = 8        # the register kernel's columns a thread (C2 <= 256)
+
 # launches of the CUDA kernel in this process (a run shows with it that
 # the main path went through the kernel)
 LAUNCHES = 0
@@ -37,12 +45,43 @@ def _lib():
     lib = _build.library()
     fn = lib.genarch_bsw
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.genarch_bsw_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.genarch_bsw_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def wide_smem_bytes(L: int, C2: int) -> int:
+    """Dynamic shared memory of the wide-row kernel: the group's H and F
+    rows, each pair's nonzero-column masks and three per-pair slots."""
+    return 4 * (2 * L * C2 + L * ((C2 + 31) // 32 + 1) + 3 * L)
+
+
+def kernel_variant(L: int, C2: int, smem_limit: int) -> Tuple[int, int]:
+    """(K, 0) for the register kernel with K columns a thread, or (0,
+    shared bytes) for the wide-row kernel, chosen by C2; raises where
+    neither fits a block of L warps."""
+    if not 1 <= L <= 32:
+        raise ValueError(f"a block of {L} warps: L must be 1..32 "
+                         "(1024 threads at most)")
+    K = max(1, (C2 + 31) // 32)
+    if K <= MAX_ROW_K:
+        return K, 0
+    smem = wide_smem_bytes(L, C2)
+    if smem > smem_limit:
+        raise ValueError(
+            f"bsw kernel: {L} pairs x {C2} columns need {smem} B of shared "
+            f"memory for the H and F rows, more than the {smem_limit} B a "
+            "block may have on this card")
+    return 0, smem
+
+
+def group_order(len1: torch.Tensor, R: int) -> torch.Tensor:
+    """(G,) int32: the groups by descending row count (the longest
+    reference in the group, at most R), ties in group order; block b of
+    the kernel runs group order[b]."""
+    rows = len1.amax(dim=1).clamp_max(R)
+    return torch.argsort(rows, descending=True, stable=True).to(torch.int32)
 
 
 def _check(seq1, seq2, lane_args):
@@ -82,24 +121,18 @@ def bsw_scores(seq1, seq2, len1, len2, h0, myband, *, match: int,
         raise ValueError(f"bsw_scores runs on cuda or cpu, not {seq2.device}")
     G, L, C2 = seq2.shape
     R = seq1.shape[2]
-    if L > 32:
-        raise ValueError(f"a block of {L} warps exceeds 1024 threads")
+    K, smem = kernel_variant(L, C2, torch.cuda.get_device_properties(
+        seq2.device).shared_memory_per_block_optin)
     out = torch.empty((6, G, L), dtype=torch.int32, device=seq2.device)
     if G == 0:
         return tuple(out)
+    order = group_order(len1, R)
     lib = _lib()
-    smem = lib.genarch_bsw_smem_bytes(L, C2)
-    limit = torch.cuda.get_device_properties(
-        seq2.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"bsw kernel: {L} pairs x {C2} columns need {smem} B of shared "
-            f"memory for the H and F rows, more than the {limit} B a block "
-            "may have on this card")
     stream = torch.cuda.current_stream(seq2.device).cuda_stream
     err = lib.genarch_bsw(seq1.data_ptr(), seq2.data_ptr(), len1.data_ptr(),
                           len2.data_ptr(), h0.data_ptr(), myband.data_ptr(),
-                          out.data_ptr(), G, L, R, C2,
+                          order.data_ptr(), out.data_ptr(), G, L, R, C2, K,
+                          smem,
                           *(sc[k] for k in ("match", "mismatch", "ambig",
                                             "o_del", "e_del", "o_ins",
                                             "e_ins", "zdrop", "w")),

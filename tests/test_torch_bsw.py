@@ -10,6 +10,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from genarchbench_tpu.io.bsw_io import read_bsw_pairs as jax_read
 from genarchbench_tpu.kernels import bsw as jbsw
@@ -157,3 +158,106 @@ def test_run_i8_refuses_long_input(monkeypatch, tmp_path):
     path = write_pairs(tmp_path, 4, 8, 200, 100)
     with pytest.raises(ValueError, match="int8 kernel's range"):
         bsw.run(["-pairs", path, "-i8"])
+
+
+@pytest.mark.parametrize("seed,G,L,R", [(0, 1, 8, 64), (1, 37, 8, 384),
+                                        (2, 64, 16, 96), (3, 50, 8, 40)])
+def test_group_order_longest_first(seed, G, L, R):
+    """Blocks take the groups by descending row count (the longest
+    reference of the group, at most R), ties in group order."""
+    rng = np.random.default_rng(seed)
+    len1 = rng.integers(0, R + 30, (G, L)).astype(np.int32)
+    len1[::3] = len1[0]                      # ties
+    order = bsw_cuda.group_order(torch.from_numpy(len1), R)
+    assert order.dtype == torch.int32 and order.shape == (G,)
+    order = order.numpy()
+    assert sorted(order) == list(range(G))
+    rows = np.minimum(len1.max(axis=1), R)[order]
+    assert (np.diff(rows) <= 0).all()
+    for r in np.unique(rows):
+        tied = order[rows == r]
+        assert (np.diff(tied) > 0).all()
+
+
+@pytest.mark.parametrize("L,C2,K", [(8, 1, 1), (8, 32, 1), (8, 33, 2),
+                                    (16, 64, 2), (8, 192, 6), (8, 256, 8),
+                                    (32, 256, 8)])
+def test_kernel_variant_registers(L, C2, K):
+    """Rows of up to 256 columns take the register kernel, K = C2/32
+    columns a thread (rounded up), whatever the shared-memory limit."""
+    assert bsw_cuda.kernel_variant(L, C2, 0) == (K, 0)
+
+
+@pytest.mark.parametrize("L,C2", [(8, 257), (8, 320), (16, 1024),
+                                  (8, 3488)])
+def test_kernel_variant_wide(L, C2):
+    """Wider rows take the shared-memory kernel with its byte count."""
+    limit = 232448                            # an H100 block's opt-in limit
+    smem = bsw_cuda.wide_smem_bytes(L, C2)
+    assert smem == 4 * (2 * L * C2 + L * ((C2 + 31) // 32 + 1) + 3 * L)
+    assert smem <= limit
+    assert bsw_cuda.kernel_variant(L, C2, limit) == (0, smem)
+
+
+@pytest.mark.parametrize("L,C2,limit", [(8, 3600, 232448),
+                                        (16, 2000, 232448), (8, 257, 1000),
+                                        (0, 64, 232448), (33, 64, 232448)])
+def test_kernel_variant_refuses(L, C2, limit):
+    """Neither kernel fits: rows too wide for shared memory, or a group
+    that is not 1..32 warps."""
+    with pytest.raises(ValueError):
+        bsw_cuda.kernel_variant(L, C2, limit)
+
+
+def mask_rule(nz, beg, end):
+    """The group band's first and last nonzero column as the previous
+    shared-memory kernel took them: each pair ballots its nonzero F|H
+    columns of [beg, end] in 32-column masks, the masks of the pairs are
+    OR'd, and the first set bit (the bit of column `end` cleared) and
+    the last set bit are read."""
+    L, C2 = nz.shape
+    nch = (end - beg) // 32 + 1 if end >= beg else 0
+    first, last = 1 << 28, -1
+    for k in range(nch):
+        m = 0
+        for lane in range(L):
+            for j in range(32):
+                c = beg + 32 * k + j
+                if c <= end and c < C2 and nz[lane, c]:
+                    m |= 1 << j
+        if m:
+            c0 = beg + 32 * k
+            last = max(last, c0 + m.bit_length() - 1)
+            if 0 <= end - c0 < 32:
+                m &= ~(1 << (end - c0))
+            if m:
+                first = min(first, c0 + (m & -m).bit_length() - 1)
+    return first, last
+
+
+def min_max_rule(nz, beg, end):
+    """The same columns as the register kernel takes them: the min over
+    pairs of each pair's first nonzero column in [beg, end), the max of
+    each pair's last in [beg, end]."""
+    L, C2 = nz.shape
+    cols = np.arange(C2)
+    own_first = [int(np.where((cols >= beg) & (cols < end) & row, cols,
+                              1 << 28).min()) for row in nz]
+    own_last = [int(np.where((cols >= beg) & (cols <= end) & row, cols,
+                             -1).max()) for row in nz]
+    return min(own_first), max(own_last)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_group_band_min_max_equals_mask_or(seed):
+    """The register kernel's min/max of per-pair nonzero columns is the
+    previous kernel's OR-of-masks rule, on random F|H rows and bands
+    (empty, inverted, ending at or past the last column)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        L = int(rng.choice([1, 8, 16]))
+        C2 = int(rng.choice([32, 96, 160, 256]))
+        nz = rng.random((L, C2)) < rng.choice([0.0, 0.02, 0.3, 0.9])
+        beg = int(rng.integers(0, C2))
+        end = int(rng.integers(max(beg - 5, 0), C2 + 1))
+        assert min_max_rule(nz, beg, end) == mask_rule(nz, beg, end)
