@@ -18,8 +18,23 @@ Phases (any failure exits non-zero and prints no result):
      kernel); bsw with ambiguous bases, 16-pair batches, 16-pair groups,
      groups whose first row is all zero, K = 8 register rows and rows
      wider than 256 columns (the wide-row variant);
-  5. a `{"kernels": [...]}` line with each kernel's launches, error,
-     times and bound, then the result line.  `ms` is the wrapper's call
+  5. wfa (torch ops, no hand kernel): `cli run wfa` at the JAX bench's
+     input (8192 pairs of 96 bases, 10% error, seed 104), a 0.45-error
+     input that resumes the score cap and an adaptive-reduction input,
+     each checked by the sorted rule against the port's own CPU run;
+     then a warm run's split (forward, backtrace, CIGARs), its kernel
+     launches per score step (torch.profiler's cudaLaunch* calls inside
+     the `wfa.forward` spans), its device activity, and the host ms per
+     score step at 64, 512 and 4096 pairs;
+  6. nn-base at DEFAULT_CONFIG, all under cuDNN with TF32 off: the
+     bench batch (32 x 6000 samples, seed 110) timed by CUDA events, the
+     card's log-probs against the CPU's on 2 chunks (max |diff| <= 1e-3,
+     argmax equal where the CPU's top-two margin exceeds 1e-3), and
+     `cli run nn-base default` on 4 reads of 30000 samples with the beam
+     and the `--fastq` decoders, one record a read;
+  7. a `{"paths": [...]}` line for the two torch-op paths, a
+     `{"kernels": [...]}` line with each kernel's launches, error, times
+     and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
      own device time over 20 more such calls (torch.profiler), `plain_ms`
      one warm call of the plain version.
@@ -412,12 +427,201 @@ def edge_phase():
     print("edge shapes agree: bpm W=1..33; bsw " + "; ".join(seen))
 
 
+def launches_in_spans(prof, span: str) -> int:
+    """CUDA kernel launches (the runtime's cudaLaunch* calls, on the host's
+    clock) inside every `record_function(span)` range of a profile."""
+    evs = list(prof.events())
+    spans = [(e.time_range.start, e.time_range.end) for e in evs
+             if e.name == span]
+    return sum(1 for e in evs if e.name.startswith("cudaLaunch")
+               and any(a <= e.time_range.start <= b for a, b in spans))
+
+
+def wfa_phase(card: str) -> dict:
+    """wfa through `cli run wfa` at the JAX bench's input and two small
+    ones, each checked by the sorted rule against the port's own CPU run;
+    then a warm run's split and its kernel launches per step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from genarchbench_tpu_torch.core.check import check_sorted
+    from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
+    from genarchbench_tpu_torch.kernels import wfa
+
+    adaptive = ["--minimum-wavefront-length", "10",
+                "--maximum-difference-distance", "25"]
+    # (name, generator args, CLI flags, pairs checked against the CPU)
+    cases = [("bench", (104, 8192, 96, 0.10), [], 1024),
+             ("scap-retry", (9, 64, 120, 0.45), [], 64),
+             ("adaptive", (6, 256, 150, 0.20), adaptive, 256)]
+    for name, (seed, n, length, err), extra, n_check in cases:
+        inp, outp, errp = (WORK / f"wfa_{name}.txt", WORK / f"wfa_{name}.out",
+                           WORK / f"wfa_{name}.err")
+        inp.write_text(synth().gen_seqpair_dataset(
+            np.random.default_rng(seed), n_pairs=n, length=length,
+            error_rate=err))
+        stdout = run_cli(["run", "wfa", "-i", str(inp), "-o", str(outp),
+                          *extra], errp)
+        print(f"wfa {name} cli:", timing_line(stdout, "Time.Alignment"), "|",
+              timing_line(errp.read_text(), "CellUpdates").strip())
+        pairs = read_seqpairs(str(inp))
+        sub = SeqPairs(pairs.patterns[:n_check], pairs.texts[:n_check])
+        red = dict(red_len=10, red_dist=25) if extra else {}
+        want = [f"id={i} {c}" for i, c in
+                enumerate(wfa.wfa_batch(sub, device="cpu", **red))]
+        res = check_sorted(outp.read_text().splitlines()[:n_check], want)
+        if not res:
+            fail(f"wfa {name}: the card's CIGARs vs the CPU run's on the "
+                 f"first {n_check} pairs: {res.detail}")
+        if name == "bench":
+            bench = pairs
+            roi_s = float(timing_line(stdout, "Time.Alignment").split()[1])
+
+    wfa.wfa_batch(bench)                          # warm
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    wfa.wfa_batch(bench, stats=stats)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wfa.wfa_batch(bench)
+        torch.cuda.synchronize()
+    fwd = launches_in_spans(prof, "wfa.forward")
+    bt = launches_in_spans(prof, "wfa.backtrace")
+    # device activity by name, [count, us]; the record_function spans
+    # also appear on the device's timeline and are left out
+    device = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith("wfa."):
+            c = device.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    kernel_us = sum(us for _, us in device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    # host ms per score step against the chunk's width: flat when the
+    # loop is bound by its launches, rising with B when by the card
+    per_step = {}
+    for n in (64, 512, 4096):
+        sub = SeqPairs(bench.patterns[:n], bench.texts[:n])
+        wfa.wfa_batch(sub)
+        st = {}
+        wfa.wfa_batch(sub, stats=st)
+        per_step[n] = st["forward_s"] * 1e3 / st["score_steps"]
+    row = dict(name="wfa", ms=wall_ms, steps=stats["score_steps"],
+               bt_steps=stats["bt_steps"], resumes=stats["resumes"],
+               chunks=stats["chunks"], pairs=len(bench),
+               forward_ms=stats["forward_s"] * 1e3,
+               backtrace_ms=stats["backtrace_s"] * 1e3,
+               cigar_ms=stats["cigar_s"] * 1e3,
+               launches_forward=fwd, launches_backtrace=bt,
+               launches_per_score_step=fwd / stats["score_steps"],
+               launches_per_bt_step=bt / max(stats["bt_steps"], 1),
+               profiled_device_ms=kernel_us / 1e3,
+               device_busy_share=kernel_us / 1e3 / wall_ms,
+               device_events=sum(c for c, _ in device.values()),
+               forward_ms_per_step_by_pairs=per_step, cli_roi_s=roi_s,
+               cells_per_s=wfa.cell_updates(bench) / (wall_ms / 1e3),
+               card=card)
+    print(f"wfa warm: {wall_ms:.1f} ms for {len(bench)} pairs "
+          f"({stats['chunks']} chunks, {stats['score_steps']} score steps, "
+          f"{stats['resumes']} resumes, {stats['bt_steps']} backtrace "
+          f"steps): forward {row['forward_ms']:.1f} ms, backtrace "
+          f"{row['backtrace_ms']:.1f} ms, CIGARs {row['cigar_ms']:.1f} ms; "
+          f"{fwd} launches in the forward passes "
+          f"({row['launches_per_score_step']:.1f} a score step), {bt} in "
+          f"the backtraces; CPU parity on bench[:1024], scap-retry, "
+          f"adaptive: sorted rule ok")
+    print("wfa forward ms per score step by chunk width: " + ", ".join(
+        f"{n} pairs {v:.3f}" for n, v in per_step.items()))
+    print(f"wfa profiled run: {row['device_events']} device events, "
+          f"{kernel_us / 1e3:.1f} ms of device activity, "
+          f"{row['device_busy_share']:.1%} of the unprofiled warm run; "
+          f"top by time:")
+    for name, (c, us) in top:
+        print(f"  {us / 1e3:9.2f} ms {c:6d} x {us / c:8.2f} us  {name[:90]}")
+    return row
+
+
+def nn_phase(card: str) -> dict:
+    """nn-base at DEFAULT_CONFIG: the bench batch's warm forward, the
+    card's log-probs against the CPU's on the same weights, and both CLI
+    decoders, all with cuDNN's TF32 off."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.nn import basecall as bc
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        caller = bc.Basecaller.init(seed=0, chunksize=6000)
+        x = np.random.default_rng(110).standard_normal(
+            (32, 6000, 1)).astype(np.float32)
+        xt = torch.from_numpy(x).cuda().transpose(1, 2)
+
+        def forward():
+            with torch.no_grad():
+                caller.model(xt)
+
+        ms = event_ms(forward, 10)
+        caller.forward(x)
+        t0 = time.perf_counter()
+        caller.forward(x)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+        cpu_model = bc.BasecallModel(bc.DEFAULT_CONFIG)
+        cpu_model.load_state_dict(caller.model.state_dict())
+        cpu = bc.Basecaller(bc.DEFAULT_CONFIG, cpu_model, device="cpu")
+        on_card, on_cpu = caller.forward(x[:2]), cpu.forward(x[:2])
+        max_err = float(np.abs(on_card - on_cpu).max())
+        top2 = np.sort(on_cpu, axis=-1)[..., -2:]
+        decided = (top2[..., 1] - top2[..., 0]) > 1e-3
+        flips = int(((on_card.argmax(-1) != on_cpu.argmax(-1))
+                     & decided).sum())
+        if not np.isfinite(on_card).all() or max_err > 1e-3 or flips:
+            fail(f"nn-base: card vs CPU log-probs max |diff| {max_err} "
+                 f"(limit 1e-3), {flips} argmax flips on frames with a "
+                 f"top-two margin > 1e-3")
+
+        reads = WORK / "nn_reads"
+        reads.mkdir(exist_ok=True)
+        rng = np.random.default_rng(111)
+        for i in range(4):
+            levels = np.repeat(rng.normal(400, 80, 30000 // 8), 8)
+            np.save(reads / f"read_{i}.npy",
+                    (levels + rng.normal(0, 10, 30000)).astype(np.int16))
+        argv = ["run", "nn-base", "default", str(reads), "--chunksize",
+                "6000", "--overlap", "600"]
+        cli_lines = []
+        for extra, head, per in (([], ">", 2), (["--fastq"], "@", 4)):
+            errp = WORK / f"nn{'_fastq' if extra else ''}.err"
+            out = run_cli(argv + extra, errp).splitlines()
+            names = [ln[1:] for ln in out[::per]]
+            if names != [f"read_{i}" for i in range(4)] or \
+                    not all(ln.startswith(head) for ln in out[::per]):
+                fail(f"nn-base cli {' '.join(extra) or 'beam'}: records "
+                     f"{names}, not one per read")
+            cli_lines.append(timing_line(errp.read_text(),
+                                         "samples per second").strip())
+    n_frames = int(decided.size)
+    print(f"nn-base (cuDNN TF32 off): forward 32 x 6000 {ms:.3f} ms "
+          f"(CUDA events, mean of 10), Basecaller.forward {wall_ms:.1f} ms "
+          f"with copies; card vs CPU on 2 chunks: max |dlogp| {max_err:.2e}, "
+          f"argmax equal on every frame with margin > 1e-3 "
+          f"({n_frames - int(decided.sum())} of {n_frames} frames excluded); "
+          f"cli beam: {cli_lines[0]}; cli --fastq: {cli_lines[1]}")
+    return dict(name="nn-base", ms=ms, samples=32 * 6000,
+                samples_per_s=32 * 6000 / (ms / 1e3), wall_ms=wall_ms,
+                max_abs_err=max_err, frames_excluded=n_frames
+                - int(decided.sum()), tf32=False, card=card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    from genarchbench_tpu_torch import native
     from genarchbench_tpu_torch.kernels import _build
 
     card = card_line()
@@ -425,6 +629,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib_path}")
+    t0 = time.perf_counter()
+    native_path = native.build()
+    print(f"host helpers built in {time.perf_counter() - t0:.2f} s: "
+          f"{native_path}")
     for ln in ptxas_summary(lib_path.parent / "ptxas.txt"):
         print("  ptxas", ln)
     for ln in sass_loops(lib_path):
@@ -437,6 +645,8 @@ def main() -> int:
             bsw_phase(card, "bsw-i8", dict(seed=104, n=16384, ref_len=78,
                                            query_len=60), ["-i8"], 16)]
     edge_phase()
+    paths = [wfa_phase(card), nn_phase(card)]
+    print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

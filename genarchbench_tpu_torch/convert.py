@@ -1,16 +1,18 @@
-"""The JAX package's kernel inputs as this package's tensors.
+"""The JAX package's kernel inputs and weights as this package's tensors.
 
-Neither kernel has learned weights: the state carried across is the
-DP inputs and the scoring parameters.  These functions take the arrays
+bpm and bsw have no learned weights: the state carried across is the
+DP inputs and the scoring parameters.  Their functions take the arrays
 that the JAX package hands its bpm and bsw device functions
 (`_bpm_distance_device`, `_bsw_device` and their Pallas twins), as
 numpy arrays, and return the tensors the port's wrappers take, so the
 same inputs can go through both.  Scoring parameters pass unchanged.
+nn-base has weights: `basecall_state_from_jax` turns the JAX
+basecaller's flax variables into the port's (bonito's) state dict.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -48,3 +50,48 @@ def bsw_inputs_from_jax(seq1: np.ndarray, seq2: np.ndarray, len1: np.ndarray,
              for a in (len1, len2, h0, myband))
     return (torch.from_numpy(unpack_nibbles(seq1)),
             torch.from_numpy(unpack_nibbles(seq2)), *lanes)
+
+
+def basecall_state_from_jax(variables: Dict[str, Any],
+                            config: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX basecaller's variables ({"params": ..., "batch_stats": ...}
+    as nested dicts of numpy arrays) -> the port's `BasecallModel` state
+    dict, in bonito's names: the inverse of the JAX package's
+    `convert_torch_state_dict`.  Conv kernels go from flax (k, in/groups,
+    out) to torch (out, in/groups, k); BatchNorm scale, bias, mean and
+    var to weight, bias, running_mean and running_var."""
+    params, stats = variables["params"], variables["batch_stats"]
+    state: Dict[str, torch.Tensor] = {}
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    def conv(dst, leaves):
+        state[dst + ".weight"] = tensor(np.transpose(np.asarray(
+            leaves["kernel"]), (2, 1, 0)))
+        if "bias" in leaves:
+            state[dst + ".bias"] = tensor(leaves["bias"])
+
+    def bn(dst, p, s):
+        state[dst + ".weight"] = tensor(p["scale"])
+        state[dst + ".bias"] = tensor(p["bias"])
+        state[dst + ".running_mean"] = tensor(s["mean"])
+        state[dst + ".running_var"] = tensor(s["var"])
+        state[dst + ".num_batches_tracked"] = torch.tensor(0)
+
+    for i, layer in enumerate(config["block"]):
+        base = f"encoder.encoder.{i}"
+        blk, bst = params[f"block{i}"], stats[f"block{i}"]
+        # bonito's flat ModuleList: [TCS, BN, act, dropout] * (repeat-1)
+        # + [TCS, BN]
+        for r in range(layer["repeat"]):
+            tcs = blk[f"tcs{r}"]
+            for part in (("depthwise", "pointwise") if layer["separable"]
+                         else ("conv",)):
+                conv(f"{base}.conv.{4 * r}.{part}", tcs[part])
+            bn(f"{base}.conv.{4 * r + 1}", blk[f"bn{r}"], bst[f"bn{r}"])
+        if layer["residual"]:
+            conv(f"{base}.residual.0.conv", blk["res_tcs"]["conv"])
+            bn(f"{base}.residual.1", blk["res_bn"], bst["res_bn"])
+    conv("decoder.layers.0", params["decoder"])
+    return state

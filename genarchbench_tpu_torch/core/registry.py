@@ -29,6 +29,12 @@ _REGISTRY = {s.name: s for s in (
     KernelSpec("bsw", "genarchbench_tpu_torch.kernels.bsw",
                "banded affine-gap Smith-Waterman (BWA-MEM2 extension)",
                "exact", "Overall SW cycles"),
+    KernelSpec("wfa", "genarchbench_tpu_torch.kernels.wfa",
+               "gap-affine wavefront alignment", "sorted",
+               "Time.Alignment:"),
+    KernelSpec("nn-base", "genarchbench_tpu_torch.nn.basecall",
+               "QuartzNet-CTC nanopore basecalling (Bonito)", "exact",
+               "> samples per second"),
 )}
 
 

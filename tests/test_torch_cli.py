@@ -21,11 +21,16 @@ def test_list(capsys):
     assert cli.main(["list"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[:2] for ln in lines] == [["bpm", "sorted"],
-                                                ["bsw", "exact"]]
-    assert [s.name for s in list_kernels()] == ["bpm", "bsw"]
+                                                ["bsw", "exact"],
+                                                ["nn-base", "exact"],
+                                                ["wfa", "sorted"]]
+    assert [s.name for s in list_kernels()] == ["bpm", "bsw", "nn-base",
+                                                "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
+    assert get_kernel("wfa").timing_line == "Time.Alignment:"
+    assert get_kernel("nn-base").timing_line == "> samples per second"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("wfa")
+        get_kernel("chain")
 
 
 def test_run_bpm(tmp_path, capsys):

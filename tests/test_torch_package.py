@@ -12,7 +12,9 @@ import torch
 
 from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.kernels import bpm, bsw
+from genarchbench_tpu_torch.entry import entry
+from genarchbench_tpu_torch.kernels import bpm, bsw, wfa
+from genarchbench_tpu_torch.nn import basecall
 from tests.synth import gen_bsw_input, gen_seqpair_dataset
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -24,7 +26,9 @@ def test_import_leaves_jax_out():
     """Imported in a fresh process (this one already holds jax)."""
     code = ("import sys; import genarchbench_tpu_torch, "
             "genarchbench_tpu_torch.cli, genarchbench_tpu_torch.kernels.bpm, "
-            "genarchbench_tpu_torch.kernels.bsw, genarchbench_tpu_torch.convert; "
+            "genarchbench_tpu_torch.kernels.bsw, genarchbench_tpu_torch.convert, "
+            "genarchbench_tpu_torch.kernels.wfa, genarchbench_tpu_torch.nn.basecall, "
+            "genarchbench_tpu_torch.native, genarchbench_tpu_torch.entry; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'genarchbench_tpu' "
             "or m.startswith('genarchbench_tpu.')); print(bad)")
@@ -61,7 +65,7 @@ def test_no_card_raises(monkeypatch):
     assert resolve_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kernel", ["bpm", "bsw"])
+@pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -69,9 +73,14 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     monkeypatch.delenv("GENARCH_DEVICE", raising=False)
     rng = np.random.default_rng(0)
     inp = tmp_path / "in.txt"
-    if kernel == "bpm":
+    if kernel in ("bpm", "wfa"):
         inp.write_text(gen_seqpair_dataset(rng, n_pairs=4, length=30))
         argv = ["-i", str(inp)]
+    elif kernel == "nn-base":
+        reads = tmp_path / "reads"
+        reads.mkdir()
+        np.save(reads / "r.npy", rng.normal(400, 60, 900).astype(np.int16))
+        argv = ["default", str(reads), "--chunksize", "300"]
     else:
         inp.write_text(gen_bsw_input(rng, n_pairs=4, ref_len=40,
                                      query_len=20))
@@ -88,6 +97,9 @@ def test_public_functions_default_to_the_card(monkeypatch):
     seqs = SeqPairs([np.zeros(3, np.uint8)], [np.zeros(2, np.uint8)])
     for call in (lambda: bpm.bpm_batch(seqs),
                  lambda: bpm.bitpal_batch(seqs, 0, -1, -1),
+                 lambda: wfa.wfa_batch(seqs),
+                 lambda: basecall.Basecaller.init(),
+                 lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
                      np.array([5], np.int32), [np.zeros(4, np.int32)],
                      [np.zeros(3, np.int32)]))):
