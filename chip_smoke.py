@@ -32,7 +32,22 @@ Phases (any failure exits non-zero and prints no result):
      argmax equal where the CPU's top-two margin exceeds 1e-3), and
      `cli run nn-base default` on 4 reads of 30000 samples with the beam
      and the `--fastq` decoders, one record a read;
-  7. a `{"paths": [...]}` line for the two torch-op paths, a
+  7. chain (torch ops, no hand kernel): `cli run chain` at the JAX
+     bench's input (16384 records of up to 511 anchors, seed 102), its
+     output held exactly to the port's C scalar DP over every record,
+     then six small inputs each held to it the same way (two segments,
+     the skip-break stress input, an input whose window spans the
+     padded row, a deferral input, low words straddling 2^31 and 2^32,
+     ties); a warm run's split (host preparation, copies, anchor loop,
+     C deferrals), its kernel launches per anchor step (torch.profiler's
+     cudaLaunch* calls inside the `chain.loop` span) and the card's busy
+     share;
+  8. fast-chain: `cli run fast-chain` on the same input, the first 1024
+     records held exactly to the port's CPU run (and three small inputs
+     whole), then the same split and launch counts by tile, far pass
+     and near pass.  A busy share is the card's activity in one run
+     under torch.profiler over that run's own wall time;
+  9. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -44,7 +59,13 @@ over 1.67e13 int32 op/s (132 SMs x 64 INT32 lanes x 1.98 GHz boost: the
 data sheet's 67 TFLOP/s fp32 counts an FMA as two operations on 128
 lanes an SM).  Operations are counted from each kernel's inner step:
 22 per bpm word-step (bpm.py:90-107), 24 per evaluated bsw band cell
-(bsw.py:186-247).
+(bsw.py:186-247), 44 per chain window cell and 29 per fast-chain window
+cell (the reference's inner loops, native/chain.c::chain_dp_scalar and
+fast-chain/src/host_kernel.cpp:819-850, loads not counted), over the
+window cells the input has (the sum of i - st(i) over all anchors).
+nn-base's bound is its convolutions' float32 operations (two a
+multiply-add) over 67e12 FLOP/s; wfa's the bytes of its backtrace
+stores and mismatch tables over 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -64,17 +85,25 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 1.67e13
 BPM_OPS_PER_WORD_STEP = 22
 BSW_OPS_PER_CELL = 24
+CHAIN_OPS_PER_CELL = 44
+FAST_CHAIN_OPS_PER_CELL = 29
+PEAK_FP32_FLOPS = 67e12
 KERNEL_REPS = 20
 
 
-def synth():
-    """tests/synth.py (numpy-only input generators), loaded by path."""
+def input_module(name: str):
+    """A numpy-only input module of tests/, loaded by path."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "genarch_synth", REPO / "tests" / "synth.py")
+        f"genarch_{name}", REPO / "tests" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def synth():
+    """tests/synth.py, the input generators."""
+    return input_module("synth")
 
 
 def ptxas_summary(path: pathlib.Path):
@@ -429,12 +458,32 @@ def edge_phase():
 
 def launches_in_spans(prof, span: str) -> int:
     """CUDA kernel launches (the runtime's cudaLaunch* calls, on the host's
-    clock) inside every `record_function(span)` range of a profile."""
+    clock) inside every `record_function(span)` range of a profile.  Only
+    the host's ranges count: the profiler mirrors each range on the
+    card's timeline, where it ends later, while the host already
+    launches the next span's kernels."""
+    import torch
     evs = list(prof.events())
     spans = [(e.time_range.start, e.time_range.end) for e in evs
-             if e.name == span]
+             if e.name == span
+             and e.device_type == torch.autograd.DeviceType.CPU]
     return sum(1 for e in evs if e.name.startswith("cudaLaunch")
                and any(a <= e.time_range.start <= b for a, b in spans))
+
+
+def profiled(fn):
+    """Run fn once under torch.profiler (host and card activity), the card
+    synchronized at its end: (the profile, the run's wall ms inside the
+    profiler, the denominator of a busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return prof, ms
 
 
 def wfa_phase(card: str) -> dict:
@@ -443,7 +492,6 @@ def wfa_phase(card: str) -> dict:
     then a warm run's split and its kernel launches per step."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from genarchbench_tpu_torch.core.check import check_sorted
     from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
     from genarchbench_tpu_torch.kernels import wfa
@@ -483,10 +531,7 @@ def wfa_phase(card: str) -> dict:
     t0 = time.perf_counter()
     wfa.wfa_batch(bench, stats=stats)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wfa.wfa_batch(bench)
-        torch.cuda.synchronize()
+    prof, prof_ms = profiled(lambda: wfa.wfa_batch(bench))
     fwd = launches_in_spans(prof, "wfa.forward")
     bt = launches_in_spans(prof, "wfa.backtrace")
     # device activity by name, [count, us]; the record_function spans
@@ -509,6 +554,7 @@ def wfa_phase(card: str) -> dict:
         st = {}
         wfa.wfa_batch(sub, stats=st)
         per_step[n] = st["forward_s"] * 1e3 / st["score_steps"]
+    b_ms, b_by = bound_ms(stats["forward_bytes"], 0)
     row = dict(name="wfa", ms=wall_ms, steps=stats["score_steps"],
                bt_steps=stats["bt_steps"], resumes=stats["resumes"],
                chunks=stats["chunks"], pairs=len(bench),
@@ -518,12 +564,13 @@ def wfa_phase(card: str) -> dict:
                launches_forward=fwd, launches_backtrace=bt,
                launches_per_score_step=fwd / stats["score_steps"],
                launches_per_bt_step=bt / max(stats["bt_steps"], 1),
-               profiled_device_ms=kernel_us / 1e3,
-               device_busy_share=kernel_us / 1e3 / wall_ms,
+               profiled_device_ms=kernel_us / 1e3, profiled_ms=prof_ms,
+               device_busy_share=kernel_us / 1e3 / prof_ms,
                device_events=sum(c for c, _ in device.values()),
                forward_ms_per_step_by_pairs=per_step, cli_roi_s=roi_s,
                cells_per_s=wfa.cell_updates(bench) / (wall_ms / 1e3),
-               card=card)
+               bound_ms=b_ms, bound_by=b_by,
+               forward_bytes=stats["forward_bytes"], card=card)
     print(f"wfa warm: {wall_ms:.1f} ms for {len(bench)} pairs "
           f"({stats['chunks']} chunks, {stats['score_steps']} score steps, "
           f"{stats['resumes']} resumes, {stats['bt_steps']} backtrace "
@@ -537,11 +584,33 @@ def wfa_phase(card: str) -> dict:
         f"{n} pairs {v:.3f}" for n, v in per_step.items()))
     print(f"wfa profiled run: {row['device_events']} device events, "
           f"{kernel_us / 1e3:.1f} ms of device activity, "
-          f"{row['device_busy_share']:.1%} of the unprofiled warm run; "
+          f"{row['device_busy_share']:.1%} of the profiled run's "
+          f"{prof_ms:.1f} ms; "
           f"top by time:")
     for name, (c, us) in top:
         print(f"  {us / 1e3:9.2f} ms {c:6d} x {us / c:8.2f} us  {name[:90]}")
     return row
+
+
+def conv_flops(model, x) -> int:
+    """Float32 operations of the model's convolutions on input x, two a
+    multiply-add, from each Conv1d's output shape in one forward."""
+    import torch
+    total = [0]
+
+    def hook(mod, _inp, out):
+        total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) \
+            * mod.kernel_size[0]
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv1d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
 
 
 def nn_phase(card: str) -> dict:
@@ -563,6 +632,7 @@ def nn_phase(card: str) -> dict:
                 caller.model(xt)
 
         ms = event_ms(forward, 10)
+        flops = conv_flops(caller.model, xt)
         caller.forward(x)
         t0 = time.perf_counter()
         caller.forward(x)
@@ -612,10 +682,220 @@ def nn_phase(card: str) -> dict:
     return dict(name="nn-base", ms=ms, samples=32 * 6000,
                 samples_per_s=32 * 6000 / (ms / 1e3), wall_ms=wall_ms,
                 max_abs_err=max_err, frames_excluded=n_frames
-                - int(decided.sum()), tf32=False, card=card)
+                - int(decided.sum()), tf32=False, flops=flops,
+                bound_ms=flops / PEAK_FP32_FLOPS * 1e3, bound_by="operations",
+                card=card)
+
+
+def device_activity(prof, skip: str):
+    """(events, ms) of the card's activity in a profile, leaving out the
+    record_function spans (named `skip`...) mirrored on its timeline."""
+    import torch
+    count, us = 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith(skip):
+            count += 1
+            us += e.time_range.elapsed_us()
+    return count, us / 1e3
+
+
+def chain_lines(results) -> list:
+    """Chain-format output lines of [(scores, parents, ...)]."""
+    from genarchbench_tpu_torch.io import chain_io
+    out = io.StringIO()
+    chain_io.write_returns(out, [(r[0], r[1]) for r in results])
+    return out.getvalue().splitlines()
+
+
+def chain_phase(card: str, bench_path: pathlib.Path):
+    """chain through `cli run chain` at the JAX bench's input and six
+    small ones, each output held exactly to the port's C scalar DP; then
+    a warm run's split, its launches per anchor step and the card's busy
+    share.  Returns (row, the bench's records)."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.core.check import check_exact
+    from genarchbench_tpu_torch.io import chain_io
+    from genarchbench_tpu_torch.kernels import chain
+
+    ci = input_module("torch_chain_inputs")
+    cases = [("bench", None),
+             ("two-segments", synth().gen_chain_input(
+                 np.random.default_rng(31), n_records=256, max_anchors=400,
+                 n_segs=2)),
+             ("skip-break", ci.skip_break_text()), ("dense", ci.dense_text()),
+             ("deferral", ci.deferral_text()), ("u32-wrap", ci.wrap_text()),
+             ("ties", ci.tie_text())]
+    for name, text in cases:
+        inp = bench_path if text is None else WORK / f"chain_{name}.txt"
+        if text is not None:
+            inp.write_text(text)
+        outp, errp = WORK / f"chain_{name}.out", WORK / f"chain_{name}.err"
+        torch.cuda.reset_peak_memory_stats()
+        run_cli(["run", "chain", "-i", str(inp), "-o", str(outp)], errp)
+        line = timing_line(errp.read_text(), "Time in kernel")
+        recs = chain_io.read_records_path(str(inp))
+        ws = chain_io.window_starts_all(recs, chain.MAX_ITER)
+        t0 = time.perf_counter()
+        want = chain_lines(chain.scalar_dp(recs, ws))
+        scalar_ms = (time.perf_counter() - t0) * 1e3
+        res = check_exact(outp.read_text().splitlines(), want)
+        if not res:
+            fail(f"chain {name}: the card's output vs the C scalar DP: "
+                 f"{res.detail}")
+        st = {}
+        chain.chain_batch(recs, stats=st)
+        route = {"dense": all(W == N for W, N in st["widths"]),
+                 "deferral": st["deferred"] > 0}.get(name, True)
+        if not route:
+            fail(f"chain {name}: the input missed its path: {st}")
+        print(f"chain {name} cli: {line.strip()} | {len(recs)} records, "
+              f"{st['plans']} plans, (W, N) {st['widths']}, "
+              f"{st['deferred']} deferred: exact vs the C scalar DP")
+        if name == "bench":
+            records, bench_ws = recs, ws
+            roi_s = float(line.split()[3])
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            c_ms = scalar_ms
+
+    n_anchors = sum(r.n for r in records)
+    cells = sum(r.n * (r.n - 1) // 2 - int(w.sum(dtype=np.int64))
+                for r, w in zip(records, bench_ws))
+    chain.chain_batch(records)                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain.chain_batch(records)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = {}
+    chain.chain_batch(records, stats=stats)
+    prof, prof_ms = profiled(lambda: chain.chain_batch(records))
+    loop = launches_in_spans(prof, "chain.loop")
+    events, dev_ms = device_activity(prof, "chain.")
+    # anchor planes read once (x low word, qi, st: 4 bytes; span, sid: 1)
+    # and scores, parents, peaks written once
+    b_ms, b_by = bound_ms(26 * n_anchors, CHAIN_OPS_PER_CELL * cells)
+    row = dict(name="chain", ms=wall_ms, records=len(records),
+               anchors=n_anchors, window_cells=cells, plans=stats["plans"],
+               widths=stats["widths"], steps=stats["steps"], deferred=stats["deferred"],
+               prep_ms=stats["prep_s"] * 1e3, h2d_ms=stats["h2d_s"] * 1e3,
+               loop_ms=stats["loop_s"] * 1e3, d2h_ms=stats["d2h_s"] * 1e3,
+               scalar_ms=stats["scalar_s"] * 1e3, launches_loop=loop,
+               launches_per_anchor_step=loop / stats["steps"],
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               cli_roi_s=roi_s, cells_per_s_roi=cells / roi_s,
+               cells_per_s=cells / (wall_ms / 1e3), peak_gb=peak_gb,
+               c_scalar_all_ms=c_ms, bound_ms=b_ms, bound_by=b_by, card=card)
+    print(f"chain warm: {wall_ms:.1f} ms for {len(records)} records, "
+          f"{n_anchors} anchors, {cells} window cells ({stats['plans']} "
+          f"plans, (W, N) {stats['widths']}, {stats['steps']} anchor "
+          f"steps, {stats['deferred']} deferred); with a sync at each boundary: prep "
+          f"{row['prep_ms']:.1f} ms, h2d {row['h2d_ms']:.1f}, loop "
+          f"{row['loop_ms']:.1f}, d2h {row['d2h_ms']:.1f}, C deferrals "
+          f"{row['scalar_ms']:.1f}; {loop} launches in the loop "
+          f"({row['launches_per_anchor_step']:.1f} an anchor step); "
+          f"{dev_ms:.1f} ms of device activity in a profiled run, "
+          f"{row['device_busy_share']:.1%} of its {prof_ms:.1f} ms; "
+          f"{row['cells_per_s_roi']:.3e} cells/s over the CLI's ROI; "
+          f"bound {b_ms:.4f} ms ({b_by}); the C oracle (scalar DP and its "
+          f"output lines) over all records {c_ms:.1f} ms; peak "
+          f"{peak_gb:.2f} GB")
+    return row, records
+
+
+def fast_chain_phase(card: str, bench_path: pathlib.Path, records):
+    """fast-chain through `cli run fast-chain` at the bench input, its
+    first 1024 records held exactly to the port's CPU run, and three
+    small inputs whole; then a warm run's split and its launches by tile,
+    far pass and near pass."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.core.check import check_exact
+    from genarchbench_tpu_torch.io import chain_io
+    from genarchbench_tpu_torch.kernels import fast_chain
+
+    ci = input_module("torch_chain_inputs")
+    cases = [("bench", None, 1024), ("ties", ci.tie_text(), None),
+             ("u32-wrap", ci.wrap_text(), None),
+             ("dense", ci.dense_text(), None)]
+    for name, text, n_check in cases:
+        inp = bench_path if text is None else WORK / f"fc_{name}.txt"
+        if text is not None:
+            inp.write_text(text)
+        outp, errp = WORK / f"fc_{name}.out", WORK / f"fc_{name}.err"
+        torch.cuda.reset_peak_memory_stats()
+        run_cli(["run", "fast-chain", "-i", str(inp), "-o", str(outp)], errp)
+        line = timing_line(errp.read_text(), "Time in kernel")
+        recs = records if text is None else \
+            chain_io.read_records_path(str(inp))
+        sub = recs[:n_check] if n_check else recs
+        want = chain_lines(fast_chain.fast_chain_batch(sub, device="cpu"))
+        got = outp.read_text().splitlines()[:len(want)]
+        res = check_exact(got, want)
+        if not res:
+            fail(f"fast-chain {name}: the card's output vs the CPU run on "
+                 f"{len(sub)} records: {res.detail}")
+        print(f"fast-chain {name} cli: {line.strip()} | exact vs the CPU "
+              f"run on {len(sub)} of {len(recs)} records")
+        if name == "bench":
+            roi_s = float(line.split()[3])
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_anchors = sum(r.n for r in records)
+    ws = chain_io.window_starts_all(records)
+    cells = sum(r.n * (r.n - 1) // 2 - int(w.sum(dtype=np.int64))
+                for r, w in zip(records, ws))
+    fast_chain.fast_chain_batch(records)            # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast_chain.fast_chain_batch(records)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = {}
+    fast_chain.fast_chain_batch(records, stats=stats)
+    prof, prof_ms = profiled(lambda: fast_chain.fast_chain_batch(records))
+    far = launches_in_spans(prof, "fast_chain.far")
+    near = launches_in_spans(prof, "fast_chain.near")
+    events, dev_ms = device_activity(prof, "fast_chain.")
+    # x low word, qi, st read once (4 bytes), span (1); scores and
+    # parents written once
+    b_ms, b_by = bound_ms(21 * n_anchors, FAST_CHAIN_OPS_PER_CELL * cells)
+    tiles = stats["tiles"]
+    row = dict(name="fast-chain", ms=wall_ms, records=len(records),
+               anchors=n_anchors, window_cells=cells, plans=stats["plans"],
+               tiles=tiles, far_chunks=stats["far_chunks"],
+               near_steps=stats["near_steps"],
+               prep_ms=stats["prep_s"] * 1e3, h2d_ms=stats["h2d_s"] * 1e3,
+               far_ms=stats["far_s"] * 1e3, near_ms=stats["near_s"] * 1e3,
+               d2h_ms=stats["d2h_s"] * 1e3, launches_far=far,
+               launches_near=near, launches_far_per_tile=far / tiles,
+               launches_near_per_tile=near / tiles,
+               launches_per_far_chunk=far / max(stats["far_chunks"], 1),
+               launches_per_near_step=near / stats["near_steps"],
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               cli_roi_s=roi_s, cells_per_s_roi=cells / roi_s,
+               cells_per_s=cells / (wall_ms / 1e3), peak_gb=peak_gb,
+               bound_ms=b_ms, bound_by=b_by, card=card)
+    print(f"fast-chain warm: {wall_ms:.1f} ms ({stats['plans']} plans, "
+          f"{tiles} tiles, {stats['far_chunks']} far chunks, "
+          f"{stats['near_steps']} near steps); with a sync at each "
+          f"boundary: prep {row['prep_ms']:.1f} ms, h2d "
+          f"{row['h2d_ms']:.1f}, far {row['far_ms']:.1f}, near "
+          f"{row['near_ms']:.1f}, d2h {row['d2h_ms']:.1f}; launches: far "
+          f"{far} ({row['launches_far_per_tile']:.1f} a tile, "
+          f"{row['launches_per_far_chunk']:.1f} a chunk), near {near} "
+          f"({row['launches_near_per_tile']:.1f} a tile, "
+          f"{row['launches_per_near_step']:.1f} a step); {dev_ms:.1f} ms "
+          f"of device activity in a profiled run, "
+          f"{row['device_busy_share']:.1%} of its {prof_ms:.1f} ms; "
+          f"{row['cells_per_s_roi']:.3e} cells/s over the CLI's ROI; "
+          f"bound {b_ms:.4f} ms ({b_by}); peak {peak_gb:.2f} GB")
+    return row
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -646,6 +926,14 @@ def main() -> int:
                                            query_len=60), ["-i8"], 16)]
     edge_phase()
     paths = [wfa_phase(card), nn_phase(card)]
+    bench = WORK / "chain_bench.txt"
+    t0 = time.perf_counter()
+    bench.write_text(synth().gen_chain_input(np.random.default_rng(102),
+                                             n_records=16384,
+                                             max_anchors=512))
+    print(f"chain bench input written in {time.perf_counter() - t0:.1f} s")
+    row, records = chain_phase(card, bench)
+    paths += [row, fast_chain_phase(card, bench, records)]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

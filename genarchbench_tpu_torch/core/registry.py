@@ -29,6 +29,12 @@ _REGISTRY = {s.name: s for s in (
     KernelSpec("bsw", "genarchbench_tpu_torch.kernels.bsw",
                "banded affine-gap Smith-Waterman (BWA-MEM2 extension)",
                "exact", "Overall SW cycles"),
+    KernelSpec("chain", "genarchbench_tpu_torch.kernels.chain",
+               "minimap2 anchor chaining DP (exact, with skip heuristics)",
+               "exact", "Time in kernel:"),
+    KernelSpec("fast-chain", "genarchbench_tpu_torch.kernels.fast_chain",
+               "simplified 32-bit anchor chaining (vectorized, no "
+               "heuristics)", "exact", "Time in kernel:"),
     KernelSpec("wfa", "genarchbench_tpu_torch.kernels.wfa",
                "gap-affine wavefront alignment", "sorted",
                "Time.Alignment:"),

@@ -10,6 +10,8 @@ chain/src/main.cpp:19-38,112-190), on PyTorch:
   * optional `torch.profiler` capture when `GENARCH_TRACE_DIR` is set
     (a Chrome trace `roi_<name>.json` in that directory),
   * the kernel's greppable timing line (see BASELINE.md's table).
+
+`Laps` splits a run into named phases for a `stats=` dict.
 """
 
 from __future__ import annotations
@@ -78,3 +80,22 @@ class ROITimer:
         line = self.timing_line.format(t=self.elapsed, **extra)
         print(line, file=file if file is not None else sys.stderr, flush=True)
 
+
+class Laps:
+    """Wall seconds between successive marks, summed by name into
+    `stats`, with a sync of `device` at each mark so that a phase holds
+    its own device work; every mark is a no-op when `stats` is None."""
+
+    def __init__(self, stats: Optional[dict], device: torch.device):
+        self.stats = stats
+        self.device = device
+        self._t = time.perf_counter()
+
+    def __call__(self, key: str) -> None:
+        if self.stats is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.stats[key] = self.stats.get(key, 0.0) + now - self._t
+        self._t = now

@@ -576,13 +576,15 @@ def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
     """RLE CIGAR per pair in input order (complete-wavefronts mode).
 
     `stats`, when a dict, is filled with the chunks, score steps,
-    resumes and backtrace steps of the run and the seconds of its
-    forward passes, backtraces and CIGAR assembly (read at the syncs
-    the run makes anyway)."""
+    resumes and backtrace steps of the run, the bytes of its backtrace
+    stores and mismatch tables (each written or read once at least),
+    and the seconds of its forward passes, backtraces and CIGAR assembly
+    (read at the syncs the run makes anyway)."""
     dev = resolve_device(device)
     if stats is not None:
         stats.update(chunks=0, score_steps=0, resumes=0, bt_steps=0,
-                     forward_s=0.0, backtrace_s=0.0, cigar_s=0.0)
+                     forward_bytes=0, forward_s=0.0, backtrace_s=0.0,
+                     cigar_s=0.0)
     n = len(pairs)
     out: List[str] = [""] * n
     lens_p = np.array([p.shape[0] for p in pairs.patterns], np.int64)
@@ -661,6 +663,8 @@ def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
                 stats["score_steps"] += state.s
                 stats["resumes"] += resumes
                 stats["bt_steps"] += res[0]
+                stats["forward_bytes"] += 4 * state.store.numel() \
+                    + 8 * len(chunk) * state.store.shape[2] * (Lp // 32)
                 stats["forward_s"] += t1 - t0
                 stats["backtrace_s"] += t2 - t1
                 stats["cigar_s"] += time.perf_counter() - t2

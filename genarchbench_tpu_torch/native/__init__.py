@@ -1,16 +1,17 @@
 """The port's native (C) host helpers, built with the system compiler.
 
-At first use `wfa_cigars.c` is compiled with `cc -O3 -shared -fPIC`
-(`$CC` overrides the compiler) into
+At first use the sources (`wfa_cigars.c`, `chain.c`) are compiled with
+`cc -O3 -shared -fPIC` (`$CC` overrides the compiler) into one library,
 
-    build/torch_native/<hash of the source and flags>/libgenarch_native.so
+    build/torch_native/<hash of the sources and flags>/libgenarch_native.so
 
 and loaded with ctypes.  The build goes into a private directory that is
 renamed into place, so concurrent first uses never load a half-written
 library, and an edited source is rebuilt.  A failed build raises with
 the compiler's stderr: there is no Python fallback on the main path
-(`kernels/wfa.py::_assemble_cigar` is the plain version the tests hold
-this one to).
+(the plain versions the tests hold these to are
+`kernels/wfa.py::_assemble_cigar`, `ChainRecord.window_starts` and
+`kernels/chain.py::gap_corrections_plain`).
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ from typing import List, Optional
 
 import numpy as np
 
-SRC = pathlib.Path(__file__).resolve().parent / "wfa_cigars.c"
-BUILD_ROOT = SRC.parent.parent.parent / "build" / "torch_native"
+_HERE = pathlib.Path(__file__).resolve().parent
+SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c"]
+BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 LIB_NAME = "libgenarch_native.so"
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
 
@@ -41,7 +43,10 @@ def _compiler() -> str:
 
 
 def build_dir() -> pathlib.Path:
-    h = hashlib.sha256(SRC.read_bytes())
+    h = hashlib.sha256()
+    for src in SRCS:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join([_compiler(), *CC_FLAGS]).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
@@ -56,10 +61,11 @@ def build() -> pathlib.Path:
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     try:
         r = subprocess.run([_compiler(), *CC_FLAGS, "-o", str(tmp / LIB_NAME),
-                            str(SRC)], capture_output=True, text=True)
+                            *map(str, SRCS)], capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"{_compiler()} failed on {SRC.name}:\n"
-                               f"{r.stderr}")
+            raise RuntimeError(
+                f"{_compiler()} failed on {', '.join(s.name for s in SRCS)}:"
+                f"\n{r.stderr}")
         try:
             os.replace(tmp, build_dir())
         except OSError:
@@ -77,11 +83,25 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p32 = ctypes.POINTER(ctypes.c_int32)
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            pu8 = ctypes.POINTER(ctypes.c_uint8)
             i64 = ctypes.c_int64
             lib.wfa_cigars.restype = ctypes.c_int
             lib.wfa_cigars.argtypes = [
                 i64, i64, p32, ctypes.POINTER(ctypes.c_int8),
                 p32, p32, p32, p32, p32, ctypes.c_char_p, i64, p32]
+            lib.chain_window_starts.restype = None
+            lib.chain_window_starts.argtypes = [
+                i64, p64, ctypes.POINTER(ctypes.c_uint64), p64, i64, p32]
+            lib.chain_gap_corr.restype = None
+            lib.chain_gap_corr.argtypes = [
+                i64, ctypes.POINTER(ctypes.c_float), i64, i64,
+                ctypes.c_double, p32, p32, pu8]
+            lib.chain_dp_scalar.restype = ctypes.c_int
+            lib.chain_dp_scalar.argtypes = [
+                i64, p64, p64, ctypes.POINTER(ctypes.c_double), p32, p32,
+                p32, p32, ctypes.POINTER(ctypes.c_uint32), p32, pu8, pu8,
+                p32, p32, p32, p32]
             _lib = lib
         return _lib
 
@@ -124,3 +144,82 @@ def wfa_cigars(nmats: np.ndarray, ops: np.ndarray, gap_t: np.ndarray,
                            f"wfa_cigars: lane {rc - 1}'s CIGAR overflowed "
                            f"{stride} bytes")
     return [out[b, :outlen[b]].tobytes().decode() for b in range(B)]
+
+
+def _flat(name: str, a, dtype, n: int) -> np.ndarray:
+    a = np.ascontiguousarray(a, dtype)
+    if a.shape != (n,):
+        raise ValueError(f"{name} must be ({n},), got {a.shape}")
+    return a
+
+
+def chain_window_starts(offs: np.ndarray, x: np.ndarray, mdx: np.ndarray,
+                        max_iter: int) -> np.ndarray:
+    """Window starts (int32, flat like x) of the records whose sorted
+    uint64 anchors x[offs[r]:offs[r + 1]] have max_dist_x mdx[r]."""
+    offs = np.ascontiguousarray(offs, np.int64)
+    nrec = len(offs) - 1
+    if nrec < 0 or (np.diff(offs) < 0).any() or offs[0] != 0:
+        raise ValueError("offs must be a non-decreasing offset list from 0")
+    x = _flat("x", x, np.uint64, int(offs[-1]))
+    mdx = _flat("mdx", mdx, np.int64, nrec)
+    out = np.empty(len(x), np.int32)
+    library().chain_window_starts(
+        nrec, _ptr(offs, ctypes.c_int64), _ptr(x, ctypes.c_uint64),
+        _ptr(mdx, ctypes.c_int64), max_iter, _ptr(out, ctypes.c_int32))
+    return out
+
+
+def chain_gap_corr(avg32: np.ndarray, t_size: int, ck: int,
+                   safe_prod: float):
+    """Sparse f32-vs-f64 gap-cost corrections for dd in [0, t_size):
+    (corr_dd (nb, ck) int32 with -1 in unused slots, corr_delta (nb, ck)
+    int32, over (nb,) bool: rows that need chain_dp_scalar)."""
+    avg32 = np.ascontiguousarray(avg32, np.float32).ravel()
+    nb = len(avg32)
+    corr_dd = np.full((nb, ck), -1, np.int32)
+    corr_delta = np.zeros((nb, ck), np.int32)
+    over = np.zeros(nb, np.uint8)
+    library().chain_gap_corr(
+        nb, _ptr(avg32, ctypes.c_float), t_size, ck, safe_prod,
+        _ptr(corr_dd, ctypes.c_int32), _ptr(corr_delta, ctypes.c_int32),
+        _ptr(over, ctypes.c_uint8))
+    return corr_dd, corr_delta, over.astype(bool)
+
+
+def chain_dp_scalar(ns, avg, mdx, mdy, bw, nsegs, x_lo, qi, span, sid, st):
+    """The exact scalar chain DP over records laid end to end: record b
+    has ns[b] anchors, per-record parameters avg (the f32 avg_qspan),
+    mdx, mdy, bw, nsegs, and flat anchor planes x_lo (uint32), qi,
+    span and sid (uint8) and window starts st.  Returns flat
+    (scores, parents, peaks) int32."""
+    ns = np.ascontiguousarray(ns, np.int64)
+    B = len(ns)
+    if (ns < 0).any():
+        raise ValueError("ns must be non-negative")
+    offs = np.zeros(B, np.int64)
+    np.cumsum(ns[:-1], out=offs[1:])
+    M = int(ns.sum())
+    avg = _flat("avg", avg, np.float64, B)
+    per = [_flat(nm, a, np.int32, B) for nm, a in
+           (("mdx", mdx), ("mdy", mdy), ("bw", bw), ("nsegs", nsegs))]
+    x_lo = _flat("x_lo", x_lo, np.uint32, M)
+    qi = _flat("qi", qi, np.int32, M)
+    span = _flat("span", span, np.uint8, M)
+    sid = _flat("sid", sid, np.uint8, M)
+    st = _flat("st", st, np.int32, M)
+    if ((st < 0) | (st > np.arange(M) - np.repeat(offs, ns))).any():
+        raise ValueError("window starts must lie in [0, i]")
+    scores = np.zeros(M, np.int32)
+    parents = np.zeros(M, np.int32)
+    peaks = np.zeros(M, np.int32)
+    rc = library().chain_dp_scalar(
+        B, _ptr(ns, ctypes.c_int64), _ptr(offs, ctypes.c_int64),
+        _ptr(avg, ctypes.c_double), *(_ptr(a, ctypes.c_int32) for a in per),
+        _ptr(x_lo, ctypes.c_uint32), _ptr(qi, ctypes.c_int32),
+        _ptr(span, ctypes.c_uint8), _ptr(sid, ctypes.c_uint8),
+        _ptr(st, ctypes.c_int32), _ptr(scores, ctypes.c_int32),
+        _ptr(parents, ctypes.c_int32), _ptr(peaks, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError("chain_dp_scalar: out of memory")
+    return scores, parents, peaks

@@ -22,15 +22,20 @@ def test_list(capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[:2] for ln in lines] == [["bpm", "sorted"],
                                                 ["bsw", "exact"],
+                                                ["chain", "exact"],
+                                                ["fast-chain", "exact"],
                                                 ["nn-base", "exact"],
                                                 ["wfa", "sorted"]]
-    assert [s.name for s in list_kernels()] == ["bpm", "bsw", "nn-base",
+    assert [s.name for s in list_kernels()] == ["bpm", "bsw", "chain",
+                                                "fast-chain", "nn-base",
                                                 "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
     assert get_kernel("wfa").timing_line == "Time.Alignment:"
     assert get_kernel("nn-base").timing_line == "> samples per second"
+    assert get_kernel("chain").timing_line == "Time in kernel:"
+    assert get_kernel("fast-chain").timing_line == "Time in kernel:"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("chain")
+        get_kernel("fmi")
 
 
 def test_run_bpm(tmp_path, capsys):

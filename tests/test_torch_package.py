@@ -13,9 +13,10 @@ import torch
 from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.entry import entry
-from genarchbench_tpu_torch.kernels import bpm, bsw, wfa
+from genarchbench_tpu_torch.io.chain_io import ChainRecord
+from genarchbench_tpu_torch.kernels import bpm, bsw, chain, fast_chain, wfa
 from genarchbench_tpu_torch.nn import basecall
-from tests.synth import gen_bsw_input, gen_seqpair_dataset
+from tests.synth import gen_bsw_input, gen_chain_input, gen_seqpair_dataset
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "genarchbench_tpu_torch").rglob("*.py")) \
@@ -28,7 +29,11 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.cli, genarchbench_tpu_torch.kernels.bpm, "
             "genarchbench_tpu_torch.kernels.bsw, genarchbench_tpu_torch.convert, "
             "genarchbench_tpu_torch.kernels.wfa, genarchbench_tpu_torch.nn.basecall, "
-            "genarchbench_tpu_torch.native, genarchbench_tpu_torch.entry; "
+            "genarchbench_tpu_torch.native, genarchbench_tpu_torch.entry, "
+            "genarchbench_tpu_torch.kernels.chain, "
+            "genarchbench_tpu_torch.kernels.fast_chain, "
+            "genarchbench_tpu_torch.io.chain_io, "
+            "genarchbench_tpu_torch.sharding.batching; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'genarchbench_tpu' "
             "or m.startswith('genarchbench_tpu.')); print(bad)")
@@ -65,7 +70,8 @@ def test_no_card_raises(monkeypatch):
     assert resolve_device() == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base"])
+@pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base", "chain",
+                                    "fast-chain"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -81,6 +87,9 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
         reads.mkdir()
         np.save(reads / "r.npy", rng.normal(400, 60, 900).astype(np.int16))
         argv = ["default", str(reads), "--chunksize", "300"]
+    elif kernel in ("chain", "fast-chain"):
+        inp.write_text(gen_chain_input(rng, n_records=3, max_anchors=20))
+        argv = ["-i", str(inp), "-o", str(tmp_path / "out.txt")]
     else:
         inp.write_text(gen_bsw_input(rng, n_pairs=4, ref_len=40,
                                      query_len=20))
@@ -95,9 +104,14 @@ def test_public_functions_default_to_the_card(monkeypatch):
     from genarchbench_tpu_torch.io.bsw_io import BswPairs
     from genarchbench_tpu_torch.io.seqpair_io import SeqPairs
     seqs = SeqPairs([np.zeros(3, np.uint8)], [np.zeros(2, np.uint8)])
+    recs = [ChainRecord(2, 20.0, 5000, 5000, 500, 1,
+                        np.array([5, 90], np.uint64),
+                        np.array([1, 40], np.uint64))]
     for call in (lambda: bpm.bpm_batch(seqs),
                  lambda: bpm.bitpal_batch(seqs, 0, -1, -1),
                  lambda: wfa.wfa_batch(seqs),
+                 lambda: chain.chain_batch(recs),
+                 lambda: fast_chain.fast_chain_batch(recs),
                  lambda: basecall.Basecaller.init(),
                  lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
