@@ -47,7 +47,19 @@ Phases (any failure exits non-zero and prints no result):
      whole), then the same split and launch counts by tile, far pass
      and near pass.  A busy share is the card's activity in one run
      under torch.profiler over that run's own wall time;
-  9. a `{"paths": [...]}` line for the torch-op paths, a
+  9. fmi (torch ops, no hand kernel): the JAX bench's input (2 Mbp
+     reference, 250,000 reads of 100 bases, seed 106) through `cli run
+     fmi` twice, first from the fasta (the index built on the fly), then
+     from the `.bwt.2bit.64` the port's `save_bwt2bit64` writes beside
+     it, with equal SMEM lines; the first 2048 reads' lines held exactly
+     to the port's CPU run, then four small inputs whole (N and
+     reverse-complement reads, minSeedLen 10, tandem repeats that retry
+     at the 64-wide and full tiers, the int64-row path under
+     GENARCH_FMI_FORCE_WIDE=1); a warm run's split from
+     `search_reads(stats=)`, launches in each `fmi.*` span per loop step,
+     the busy share, peak memory, reads/s and SMEMs/s over the CLI's
+     `Computing time`, and the index build's time;
+ 10. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -62,7 +74,13 @@ lanes an SM).  Operations are counted from each kernel's inner step:
 (bsw.py:186-247), 44 per chain window cell and 29 per fast-chain window
 cell (the reference's inner loops, native/chain.c::chain_dp_scalar and
 fast-chain/src/host_kernel.cpp:819-850, loads not counted), over the
-window cells the input has (the sum of i - st(i) over all anchors).
+window cells the input has (the sum of i - st(i) over all anchors);
+fmi counts 60 per live backwardExt extension (FMI_search.cpp:1268-1298:
+for each of the 4 chars, k + s, two GET_OCC of a shift, a mask, an AND
+with the one-hot mask, a popcount and an add, and the new k and s; then
+the sentinel test, 4, and the l chain, 4), over the extensions of passes
+1-3 (`search_reads(stats=)`' ext_pass*), against the bytes of the reads
+(one a base) and the SMEMs (3 int32 each).
 nn-base's bound is its convolutions' float32 operations (two a
 multiply-add) over 67e12 FLOP/s; wfa's the bytes of its backtrace
 stores and mismatch tables over 3.35 TB/s.
@@ -87,6 +105,7 @@ BPM_OPS_PER_WORD_STEP = 22
 BSW_OPS_PER_CELL = 24
 CHAIN_OPS_PER_CELL = 44
 FAST_CHAIN_OPS_PER_CELL = 29
+FMI_OPS_PER_EXT = 60
 PEAK_FP32_FLOPS = 67e12
 KERNEL_REPS = 20
 
@@ -894,6 +913,227 @@ def fast_chain_phase(card: str, bench_path: pathlib.Path, records):
     return row
 
 
+@contextlib.contextmanager
+def environ(env: dict):
+    """The process environment with env set, restored on exit."""
+    import os
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fmi_cli(argv, name: str, env=None):
+    """`cli run fmi argv` on the card, with env set around it: (its SMEM
+    lines, its stdout)."""
+    with environ(env or {}):
+        out = run_cli(["run", "fmi", *map(str, argv)], WORK / f"{name}.err")
+    return fmi_lines(out), out
+
+
+def fmi_lines(text: str) -> list:
+    return [ln for ln in text.splitlines()
+            if ln.endswith(":") and ln[:-1].isdigit() or ln.startswith("[")]
+
+
+def fmi_cpu_lines(fa, fq, batch: int, seed: int, n=None) -> list:
+    """The port's CPU run's SMEM lines on the first n reads of fq."""
+    from genarchbench_tpu_torch.kernels import fmi
+    reads = fmi.read_queries(str(fq))[:n]
+    cpu = fmi.FMISearch(fmi.load_index(str(fa)), device="cpu")
+    return fmi_lines(fmi.smem_text(fmi.search_reads(cpu, reads, batch, seed)))
+
+
+def fmi_phase(card: str) -> dict:
+    """fmi through `cli run fmi` at the JAX bench's input, from the fasta
+    and from the `.bwt.2bit.64` beside it, the first 2048 reads held to
+    the port's CPU run, then four small inputs whole; then a warm run's
+    split, its launches per loop step and the card's busy share."""
+    import torch
+    import numpy as np
+    from genarchbench_tpu_torch.kernels import fmi
+
+    fi = input_module("torch_fmi_inputs")
+    bench_dir = WORK / "fmi_bench"
+    bench_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    fa, fq = fi.bench_input(bench_dir)
+    gen_s = time.perf_counter() - t0
+    bwt = pathlib.Path(str(fa) + ".bwt.2bit.64")
+    bwt.unlink(missing_ok=True)          # the first run builds the index
+    argv = [fa, fq, 512, 19, 1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lines, out = fmi_cli(argv, "fmi_fasta")
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    roi_s = [float(timing_line(out, "Computing time").split()[2])]
+    t0 = time.perf_counter()
+    index, sa = fmi.build_index_artifacts(fmi.read_fasta_codes(str(fa)))
+    build_s = time.perf_counter() - t0
+    fmi.save_bwt2bit64(index, sa, str(bwt))
+    lines2, out2 = fmi_cli(argv, "fmi_bwt")
+    roi_s.append(float(timing_line(out2, "Computing time").split()[2]))
+    if lines2 != lines:
+        fail(f"fmi: the .bwt.2bit.64 route's {len(lines2)} SMEM lines differ "
+             f"from the fasta route's {len(lines)}")
+    t0 = time.perf_counter()
+    want = fmi_cpu_lines(fa, fq, 512, 19, 2048)
+    cpu_s = time.perf_counter() - t0
+    if lines[:len(want)] != want:
+        bad = next(i for i, (a, b) in enumerate(zip(lines, want)) if a != b)
+        fail(f"fmi bench: the card's SMEM lines of the first 2048 reads vs "
+             f"the CPU run's: first difference at line {bad}: "
+             f"{lines[bad]!r} vs {want[bad]!r}")
+    print(f"fmi bench cli: {timing_line(out, 'Computing time')} and "
+          f"{timing_line(out2, 'Computing time')} (fasta, .bwt.2bit.64 "
+          f"routes, equal), {timing_line(out, 'totalSmems')}; the first "
+          f"2048 reads exact vs the CPU run ({len(want)} lines)")
+
+    # small inputs whole, each on the card against the CPU run
+    rng = np.random.default_rng
+    small = [("n-rc", lambda d: fi.gen_case(d, rng(3), n_reads=64, err=0.08,
+                                            with_n=True), 8, 19, {}),
+             ("seed10", lambda d: fi.gen_case(d, rng(2), n_reads=64,
+                                              err=0.02), 4, 10, {}),
+             ("tandem", lambda d: fi.tandem_case(d, rng(5)), 8, 19, {}),
+             ("wide", lambda d: fi.gen_case(d, rng(3), n_reads=64, err=0.08,
+                                            with_n=True), 8, 19,
+              {"GENARCH_FMI_FORCE_WIDE": "1"})]
+    for name, make, batch, seed, env in small:
+        d = WORK / f"fmi_{name}"
+        d.mkdir(exist_ok=True)
+        s_fa, s_fq = make(d)
+        got, _ = fmi_cli([s_fa, s_fq, batch, seed, 1], f"fmi_{name}", env)
+        want = fmi_cpu_lines(s_fa, s_fq, batch, seed)
+        if got != want or not want:
+            fail(f"fmi {name}: the card's {len(got)} SMEM lines vs the CPU "
+                 f"run's {len(want)}")
+        if name == "tandem":
+            st = {}
+            fmi.search_reads(fmi.FMISearch(fmi.load_index(str(s_fa))),
+                             fmi.read_queries(str(s_fq)), batch, seed,
+                             stats=st)
+            retries = st["pass1_retries"]
+            if not (retries.get(64) and retries.get(128)):
+                fail(f"fmi tandem: the input missed the wide tiers: {st}")
+        if name == "wide":
+            with environ(env):
+                wide = fmi.FMISearch(fmi.load_index(str(s_fa))).wide
+            if not wide:
+                fail("fmi wide: GENARCH_FMI_FORCE_WIDE=1 did not take the "
+                     "int64-row path")
+        print(f"fmi {name} cli: {len(got)} SMEM lines, exact vs the CPU run"
+              + (f"; tier retries {retries}" if name == "tandem" else ""))
+
+    # a warm run's numbers
+    reads = fmi.read_queries(str(fq))
+    gpu = fmi.FMISearch(index)
+    fmi.search_reads(gpu, reads, 512, 19)                # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fmi.search_reads(gpu, reads, 512, 19)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = {}
+    fmi.search_reads(gpu, reads, 512, 19, stats=stats)
+    prof, prof_ms = profiled(lambda: fmi.search_reads(gpu, reads, 512, 19))
+    spans = ("restart", "pass1", "pass2", "pass3")
+    launches = {sp: launches_in_spans(prof, f"fmi.{sp}") for sp in spans}
+    steps = {"restart": stats["restart_steps"],
+             "pass1": stats["pass1_fwd_steps"] + stats["pass1_bwd_steps"],
+             "pass2": stats["pass2_fwd_steps"] + stats["pass2_bwd_steps"],
+             "pass3": stats["pass3_steps"]}
+    events, dev_ms = device_activity(prof, "fmi.")
+    span_dev_ms, top = fmi_device_split(prof, spans)
+    ext = stats["ext_pass1"] + stats["ext_pass2"] + stats["ext_pass3"]
+    nbytes = sum(len(r) for r in reads) + 12 * stats["smems"]
+    b_ms, b_by = bound_ms(nbytes, FMI_OPS_PER_EXT * ext)
+    split = {k: stats[k] * 1e3 for k in ("prep_s", "h2d_s", "restart_s",
+                                         "pass1_s", "pass2_s", "pass3_s",
+                                         "sort_s")}
+    row = dict(name="fmi", ms=wall_ms, reads=len(reads), smems=stats["smems"],
+               items_pass1=stats["items_pass1"],
+               items_pass2=stats["items_pass2"],
+               hits_pass3=stats["hits_pass3"],
+               retries_pass1=stats["pass1_retries"],
+               retries_pass2=stats["pass2_retries"],
+               chunks_pass1=stats["pass1_chunks"],
+               chunks_pass2=stats["pass2_chunks"],
+               restart_calls=stats["restart_calls"],
+               seed_calls=stats["seed_calls"],
+               steps=steps, fwd_bwd_steps={
+                   p: (stats[f"{p}_fwd_steps"], stats[f"{p}_bwd_steps"])
+                   for p in ("pass1", "pass2")},
+               split_ms=split, launches=launches,
+               launches_per_step={sp: launches[sp] / max(steps[sp], 1)
+                                  for sp in spans},
+               launches_total=sum(launches.values()),
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               device_ms_by_span=span_dev_ms, top_device_kernels=top,
+               cli_roi_s=roi_s,
+               reads_per_s=[len(reads) / t for t in roi_s],
+               smems_per_s=[stats["smems"] / t for t in roi_s],
+               extensions=ext, ext_restart=stats["ext_restart"],
+               bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+               peak_gb=peak_gb, index_build_s=build_s,
+               bench_input_s=gen_s, cli_fasta_wall_s=cli_s,
+               cpu_2048_reads_s=cpu_s, card=card)
+    print(f"fmi warm: {wall_ms:.1f} ms for {len(reads)} reads "
+          f"({stats['items_pass1']} pass-1 items, {stats['items_pass2']} "
+          f"pass-2 items, {stats['hits_pass3']} pass-3 hits, "
+          f"{stats['smems']} SMEMs; retries pass 1 {stats['pass1_retries']}, "
+          f"pass 2 {stats['pass2_retries']}; chunks {stats['pass1_chunks']} "
+          f"+ {stats['pass2_chunks']}); with a sync at each boundary: "
+          + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in split.items())
+          + " ms; launches (a loop step): "
+          + ", ".join(f"{sp} {launches[sp]} ({row['launches_per_step'][sp]:.1f}"
+                      f", {steps[sp]} steps)" for sp in spans)
+          + f"; {dev_ms:.1f} ms of device activity in a profiled run, "
+          f"{row['device_busy_share']:.1%} of its {prof_ms:.1f} ms; "
+          f"{row['reads_per_s'][0]:.4e} reads/s, {row['smems_per_s'][0]:.4e} "
+          f"SMEMs/s over the CLI's Computing time; bound {b_ms:.4f} ms "
+          f"({b_by}: {ext} extensions); index build {build_s:.2f} s; peak "
+          f"{peak_gb:.2f} GB")
+    print("fmi device ms by span: " + ", ".join(
+        f"{sp} {v:.1f}" for sp, v in span_dev_ms.items())
+          + "; top kernels by device time:")
+    for name, c, ms in top:
+        print(f"  {ms:9.2f} ms {c:6d} x {ms * 1e3 / c:8.2f} us  {name[:90]}")
+    return row
+
+
+def fmi_device_split(prof, spans):
+    """The card's kernel time in each `fmi.<span>` range of a profile (the
+    ranges the profiler mirrors on the card's timeline) and the eight
+    kernels with the most device time: ({span: ms}, [(name, count, ms)])."""
+    import torch
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = {sp: [(e.time_range.start, e.time_range.end) for e in cuda
+                   if e.name == f"fmi.{sp}"] for sp in spans}
+    by_span = dict.fromkeys(spans, 0.0)
+    by_name = {}
+    for e in cuda:
+        if e.name.startswith("fmi."):
+            continue
+        t, us = e.time_range.start, e.time_range.elapsed_us()
+        for sp, rs in ranges.items():
+            if any(a <= t <= b for a, b in rs):
+                by_span[sp] += us / 1e3
+        c = by_name.setdefault(e.name, [0, 0.0])
+        c[0] += 1
+        c[1] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return by_span, [(n, c, ms) for n, (c, ms) in top]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -933,7 +1173,7 @@ def main() -> int:
                                              max_anchors=512))
     print(f"chain bench input written in {time.perf_counter() - t0:.1f} s")
     row, records = chain_phase(card, bench)
-    paths += [row, fast_chain_phase(card, bench, records)]
+    paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card)]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ numpy arrays, and return the tensors the port's wrappers take, so the
 same inputs can go through both.  Scoring parameters pass unchanged.
 nn-base has weights: `basecall_state_from_jax` turns the JAX
 basecaller's flax variables into the port's (bonito's) state dict.
+fmi's state is its index: `fmi_index_from_jax` builds the port's
+`FMIndex` from a JAX `FMIndex`'s fields, so both search one index.
 """
 
 from __future__ import annotations
@@ -95,3 +97,16 @@ def basecall_state_from_jax(variables: Dict[str, Any],
             bn(f"{base}.residual.1", blk["res_bn"], bst["res_bn"])
     conv("decoder.layers.0", params["decoder"])
     return state
+
+
+def fmi_index_from_jax(count: np.ndarray, cp_count: np.ndarray,
+                       oh_hi: np.ndarray, oh_lo: np.ndarray, sentinel: int,
+                       seq_len: int):
+    """A JAX `FMIndex`'s fields (count (5,), cp_count (ncp, 4), the
+    one-hot words oh_hi and oh_lo (ncp, 4) uint32, the sentinel row and
+    the BWT length) -> the port's `kernels.fmi.FMIndex`, arrays copied
+    with their dtypes."""
+    from genarchbench_tpu_torch.kernels.fmi import FMIndex
+    return FMIndex(np.array(count), np.array(cp_count),
+                   np.array(oh_hi, np.uint32), np.array(oh_lo, np.uint32),
+                   int(sentinel), int(seq_len))

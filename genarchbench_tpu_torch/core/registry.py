@@ -38,6 +38,9 @@ _REGISTRY = {s.name: s for s in (
     KernelSpec("wfa", "genarchbench_tpu_torch.kernels.wfa",
                "gap-affine wavefront alignment", "sorted",
                "Time.Alignment:"),
+    KernelSpec("fmi", "genarchbench_tpu_torch.kernels.fmi",
+               "FM-index SMEM search (BWA-MEM2 seeding)", "exact",
+               "Computing time:"),
     KernelSpec("nn-base", "genarchbench_tpu_torch.nn.basecall",
                "QuartzNet-CTC nanopore basecalling (Bonito)", "exact",
                "> samples per second"),

@@ -1,7 +1,8 @@
 """The port's native (C) host helpers, built with the system compiler.
 
-At first use the sources (`wfa_cigars.c`, `chain.c`) are compiled with
-`cc -O3 -shared -fPIC` (`$CC` overrides the compiler) into one library,
+At first use the sources (`wfa_cigars.c`, `chain.c`, `sais.c`) are
+compiled with `cc -O3 -shared -fPIC` (`$CC` overrides the compiler) into
+one library,
 
     build/torch_native/<hash of the sources and flags>/libgenarch_native.so
 
@@ -10,8 +11,9 @@ renamed into place, so concurrent first uses never load a half-written
 library, and an edited source is rebuilt.  A failed build raises with
 the compiler's stderr: there is no Python fallback on the main path
 (the plain versions the tests hold these to are
-`kernels/wfa.py::_assemble_cigar`, `ChainRecord.window_starts` and
-`kernels/chain.py::gap_corrections_plain`).
+`kernels/wfa.py::_assemble_cigar`, `ChainRecord.window_starts`,
+`kernels/chain.py::gap_corrections_plain` and
+`kernels/fmi.py::suffix_array_plain`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c"]
+SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c", _HERE / "sais.c"]
 BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 LIB_NAME = "libgenarch_native.so"
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
@@ -102,6 +104,8 @@ def library() -> ctypes.CDLL:
                 i64, p64, p64, ctypes.POINTER(ctypes.c_double), p32, p32,
                 p32, p32, ctypes.POINTER(ctypes.c_uint32), p32, pu8, pu8,
                 p32, p32, p32, p32]
+            lib.sais_u8.restype = ctypes.c_int
+            lib.sais_u8.argtypes = [pu8, i64, i64, p64]
             _lib = lib
         return _lib
 
@@ -223,3 +227,23 @@ def chain_dp_scalar(ns, avg, mdx, mdy, bw, nsegs, x_lo, qi, span, sid, st):
     if rc != 0:
         raise RuntimeError("chain_dp_scalar: out of memory")
     return scores, parents, peaks
+
+
+def sais(codes: np.ndarray) -> np.ndarray:
+    """Suffix array (int64) of `codes` (values below 255) by linear-time
+    SA-IS in C (`sais.c`), in shorter-suffix-first order: the codes are
+    shifted up by one, a unique smallest sentinel 0 is appended, and the
+    sentinel's own row SA[0] is dropped."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    if len(codes) and int(codes.max()) >= 255:
+        raise ValueError("sais: codes must be below 255")
+    n = len(codes)
+    text = np.empty(n + 1, np.uint8)
+    text[:n] = codes + 1
+    text[n] = 0
+    sa = np.empty(n + 1, np.int64)
+    rc = library().sais_u8(_ptr(text, ctypes.c_uint8), n + 1,
+                           int(text.max()) + 1, _ptr(sa, ctypes.c_int64))
+    if rc != 0:
+        raise RuntimeError("sais: out of memory")
+    return sa[1:]

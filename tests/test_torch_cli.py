@@ -10,6 +10,7 @@ import pytest
 
 from genarchbench_tpu_torch import cli, get_kernel, list_kernels
 from tests.synth import gen_bsw_input, gen_seqpair_dataset
+from tests.torch_fmi_inputs import gen_case, smem_lines
 
 
 @pytest.fixture(autouse=True)
@@ -24,18 +25,20 @@ def test_list(capsys):
                                                 ["bsw", "exact"],
                                                 ["chain", "exact"],
                                                 ["fast-chain", "exact"],
+                                                ["fmi", "exact"],
                                                 ["nn-base", "exact"],
                                                 ["wfa", "sorted"]]
     assert [s.name for s in list_kernels()] == ["bpm", "bsw", "chain",
-                                                "fast-chain", "nn-base",
-                                                "wfa"]
+                                                "fast-chain", "fmi",
+                                                "nn-base", "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
     assert get_kernel("wfa").timing_line == "Time.Alignment:"
     assert get_kernel("nn-base").timing_line == "> samples per second"
     assert get_kernel("chain").timing_line == "Time in kernel:"
     assert get_kernel("fast-chain").timing_line == "Time in kernel:"
+    assert get_kernel("fmi").timing_line == "Computing time:"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("fmi")
+        get_kernel("abea")
 
 
 def test_run_bpm(tmp_path, capsys):
@@ -63,6 +66,19 @@ def test_run_bsw(tmp_path, capsys):
     assert cap.out.startswith("Number of input pairs: 12\n")
     assert re.search(r"Overall SW cycles = 0, \d+\.\d\d s", cap.out)
     assert "numCellsComputed = " in cap.out
+
+
+def test_run_fmi(tmp_path, capsys):
+    fa, fq = gen_case(tmp_path, np.random.default_rng(3), ref_len=3000,
+                      n_reads=6)
+    assert cli.main(["run", "fmi", str(fa), str(fq), "8", "19", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "numReads = 6, max_readlength = 100, min_readlength = 100" in out
+    assert re.search(r"^Computing time: \d+\.\d+(e-\d+)? s$", out, re.M)
+    lines = smem_lines(out)
+    assert lines and all(re.fullmatch(r"\d+:|\[\d+,\d+\]", ln)
+                         for ln in lines)
+    assert f"totalSmems = {sum(ln[0] == '[' for ln in lines)}" in out
 
 
 def test_usage_errors(capsys):

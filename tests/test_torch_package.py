@@ -14,9 +14,11 @@ from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.entry import entry
 from genarchbench_tpu_torch.io.chain_io import ChainRecord
-from genarchbench_tpu_torch.kernels import bpm, bsw, chain, fast_chain, wfa
+from genarchbench_tpu_torch.kernels import (bpm, bsw, chain, fast_chain, fmi,
+                                            wfa)
 from genarchbench_tpu_torch.nn import basecall
 from tests.synth import gen_bsw_input, gen_chain_input, gen_seqpair_dataset
+from tests.torch_fmi_inputs import gen_case
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "genarchbench_tpu_torch").rglob("*.py")) \
@@ -32,6 +34,7 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.native, genarchbench_tpu_torch.entry, "
             "genarchbench_tpu_torch.kernels.chain, "
             "genarchbench_tpu_torch.kernels.fast_chain, "
+            "genarchbench_tpu_torch.kernels.fmi, "
             "genarchbench_tpu_torch.io.chain_io, "
             "genarchbench_tpu_torch.sharding.batching; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -71,7 +74,7 @@ def test_no_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base", "chain",
-                                    "fast-chain"])
+                                    "fast-chain", "fmi"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -90,6 +93,9 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     elif kernel in ("chain", "fast-chain"):
         inp.write_text(gen_chain_input(rng, n_records=3, max_anchors=20))
         argv = ["-i", str(inp), "-o", str(tmp_path / "out.txt")]
+    elif kernel == "fmi":
+        fa, fq = gen_case(tmp_path, rng, ref_len=500, n_reads=2, read_len=50)
+        argv = [str(fa), str(fq), "8", "19", "1"]
     else:
         inp.write_text(gen_bsw_input(rng, n_pairs=4, ref_len=40,
                                      query_len=20))
@@ -112,6 +118,7 @@ def test_public_functions_default_to_the_card(monkeypatch):
                  lambda: wfa.wfa_batch(seqs),
                  lambda: chain.chain_batch(recs),
                  lambda: fast_chain.fast_chain_batch(recs),
+                 lambda: fmi.FMISearch(fmi.build_index(np.zeros(8, np.uint8))),
                  lambda: basecall.Basecaller.init(),
                  lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
