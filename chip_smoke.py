@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. the card's name and power limit (nvidia-smi), the kernels' build;
+  1. the card's name and power limit (nvidia-smi), the kernels' build
+     and the host helpers' (the C helpers' library and the BGZF
+     decoder's, which links zlib);
   2. bpm: the reference-sized input (4096 pairs of 480 bases, 12% error,
      bench.py's seed) through `cli run bpm`; the kernel must have been
      launched, agree exactly with its plain PyTorch version on the card
@@ -59,7 +61,23 @@ Phases (any failure exits non-zero and prints no result):
      `search_reads(stats=)`, launches in each `fmi.*` span per loop step,
      the busy share, peak memory, reads/s and SMEMs/s over the CLI's
      `Computing time`, and the index build's time;
- 10. a `{"paths": [...]}` line for the torch-op paths, a
+ 10. abea (torch ops replayed in CUDA graphs, no hand kernel): the JAX
+     bench's input (256 reads of 2000 bases, seed 109) over a seeded
+     synthetic pore model, laid end to end on one contig, through `cli
+     run abea` (the .npy route), its TSV byte for byte equal to the
+     port's CPU run (the whole input when the CPU takes at most 15 s for
+     its first 64 reads, else those 64); the bench's warm pipeline
+     (get_events and align_batch, bench.py:412-419) in reads/s and band
+     cells/s; the graphed band scan and backtrace held bit for bit to
+     the same blocks run eagerly on the card, both timed, and the graphed
+     loops at blocks of 32, 64 and 128 steps (three rounds in rotating
+     order, medians); small inputs against the
+     CPU (mixed lengths of 10-2000 bases, a QC failure, a tie-heavy
+     input, a block longer than NB); a warm run's `stats=` split, the
+     kernel and graph launches in the `abea.band` / `abea.backtrace`
+     spans per step (and an eager run's), the busy share, peak memory
+     and bound;
+ 11. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -83,7 +101,12 @@ the sentinel test, 4, and the l chain, 4), over the extensions of passes
 (one a base) and the SMEMs (3 int32 each).
 nn-base's bound is its convolutions' float32 operations (two a
 multiply-add) over 67e12 FLOP/s; wfa's the bytes of its backtrace
-stores and mismatch tables over 3.35 TB/s.
+stores and mismatch tables over 3.35 TB/s.  abea's is the larger of its
+(NB, B, 100) bands and traces (5 bytes a cell, written once) with its
+inputs over 3.35 TB/s, and 15 float64 operations a band cell (the
+emission's subtract, divide, two multiplies and add, the three scores'
+five adds, two maxima and two compares, the band-range tests) over the
+data sheet's 34e12 FP64 FLOP/s outside the tensor cores.
 """
 
 from __future__ import annotations
@@ -93,6 +116,7 @@ import io
 import json
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -106,7 +130,11 @@ BSW_OPS_PER_CELL = 24
 CHAIN_OPS_PER_CELL = 44
 FAST_CHAIN_OPS_PER_CELL = 29
 FMI_OPS_PER_EXT = 60
+ABEA_OPS_PER_CELL = 15
+ABEA_BLOCKS = (32, 64, 128)
+ABEA_BLOCK_ROUNDS = 3
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 KERNEL_REPS = 20
 
 
@@ -1134,6 +1162,326 @@ def fmi_device_split(prof, spans):
     return by_span, [(n, c, ms) for n, (c, ms) in top]
 
 
+def kineto_summary(prof, prefix: str):
+    """From a profile's raw kineto events (a long run has too many to
+    build the profiler's event tree in time): for each host range whose
+    name starts with prefix, (the cudaLaunch* calls, the cudaGraphLaunch
+    calls) in it, and the card's activity outside those ranges' mirrors
+    on its timeline, (events, ms)."""
+    import torch
+    cpu = torch.autograd.DeviceType.CPU
+    spans, calls, dev_n, dev_ns = {}, [], 0, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cpu:
+            if name.startswith(prefix):
+                spans.setdefault(name, []).append((e.start_ns(), e.end_ns()))
+            elif name.startswith("cudaLaunch") or name == "cudaGraphLaunch":
+                calls.append((name == "cudaGraphLaunch", e.start_ns()))
+        elif not name.startswith(prefix):
+            dev_n += 1
+            dev_ns += e.duration_ns()
+    counts = {}
+    for sp, ranges in spans.items():
+        inside = [g for g, t in calls if any(a <= t <= b for a, b in ranges)]
+        counts[sp] = (len(inside) - sum(inside), sum(inside))
+    return counts, dev_n, dev_ns / 1e6
+
+
+ABEA_ARGS = ("ranks", "ev_mean", "n_ev", "n_km", "shifts", "scales", "lm",
+             "lsd", "llsd")
+
+
+def abea_cli(paths, name: str, cpu: bool = False):
+    """`cli run abea` over a case of tests/torch_abea_inputs.py (the .npy
+    route), on the card or with GENARCH_DEVICE=cpu: (the TSV, the
+    `Data processing time` seconds)."""
+    out, errp = WORK / f"{name}.tsv", WORK / f"{name}.err"
+    with environ({"GENARCH_DEVICE": "cpu"} if cpu else {}):
+        run_cli(["run", "abea", "-b", str(paths["bam"]), "-g",
+                 str(paths["ref"]), "-r", str(paths["npy"]), "--kmer-model",
+                 str(paths["model"]), "-o", str(out)], errp)
+    line = timing_line(errp.read_text(), "Data processing time")
+    return out.read_text(), float(line.split()[3])
+
+
+def abea_device_run(host, NB, graphed: bool, block: int):
+    """abea's two device loops on the card over align_batch's host arrays
+    (graphed, or the same blocks run eagerly): (the band scan's padded
+    outputs, the pair lists, band ms, backtrace ms with the copy back)."""
+    import torch
+    from genarchbench_tpu_torch.kernels import abea
+    d = abea._to_device(host, torch.device("cuda"))
+    args = [d[k] for k in ABEA_ARGS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    band = abea._band_scan(*args, *d["lps"], NB, block, graphed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = abea._to_host(abea._backtrace(*band, *args, d["lps"][3], NB, NB,
+                                        block, graphed))
+    t2 = time.perf_counter()
+    return band, abea._pairs(*out, host["n_km"]), (t1 - t0) * 1e3, \
+        (t2 - t1) * 1e3
+
+
+def abea_small_inputs(model) -> list:
+    """Small inputs on the card against the CPU: pair lists of mixed
+    lengths (10-2000 bases) and of a batch with a QC failure; band scan
+    and backtrace outputs, bit for bit, on a tie-heavy input and with a
+    block longer than NB."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.kernels import abea
+    ai = input_module("torch_abea_inputs")
+    rng = np.random.default_rng(21)
+    mixed = [ai.random_seq(rng, n) for n in (10, 37, 150, 700, 2000, 1200)]
+    mixed_ets = [abea.get_events(ai.synth_signal(rng, model, s))
+                 for s in mixed]
+    qc = [ai.random_seq(rng, n) for n in (220, 260, 180)]
+    qc_ets = [abea.get_events(ai.synth_signal(rng, model, s)) for s in qc]
+    qc_ets[1] = abea.get_events(ai.synth_signal(
+        rng, model, ai.random_seq(rng, 260)))
+    done = []
+    for name, seqs, ets in (("mixed 10-2000", mixed, mixed_ets),
+                            ("QC failure", qc, qc_ets)):
+        card = abea.align_batch(seqs, ets, model)
+        cpu = abea.align_batch(seqs, ets, model, device="cpu")
+        if card != cpu or (name == "QC failure") != (not all(cpu)):
+            fail(f"abea {name}: the card's pair lists differ from the CPU's "
+                 f"(lengths {[len(p) for p in card]} vs "
+                 f"{[len(p) for p in cpu]})")
+        done.append(f"{name} ({[len(p) for p in card]} pairs)")
+    for name, lengths, ties, block in (("ties", [90, 200, 150, 31], True, 64),
+                                       ("block > NB", [20, 35], False, 128)):
+        host, NB, NE, NK = ai.dyadic_host(np.random.default_rng(7), lengths,
+                                          ties)
+        outs = []
+        for dev, blk in (("cuda", block), ("cpu", abea.BLOCK)):
+            t = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            args = [t[k] for k in ABEA_ARGS]
+            band = abea._band_scan(*args, *t["lps"], NB, blk, dev == "cuda")
+            bt = abea._backtrace(*band, *args, t["lps"][3], NB, NB, blk,
+                                 dev == "cuda")
+            outs.append([x[:NB].cpu() if i < 3 else x.cpu()
+                         for i, x in enumerate((*band, *bt))])
+        if block > NB and abea.padded_bands(NB, block) - 2 != block:
+            fail(f"abea {name}: NB {NB} is not below one block")
+        bad = [i for i, (a, b) in enumerate(zip(*outs))
+               if a.numpy().tobytes() != b.numpy().tobytes()]
+        if bad:
+            fail(f"abea {name}: outputs {bad} of (bands, traces, blls, "
+                 f"fr_out, e0, n_al, sum_em, mgap, k_last) differ between "
+                 f"the card and the CPU")
+        done.append(f"{name} (NB {NB}, block {block})")
+    return done
+
+
+def abea_phase(card: str) -> dict:
+    """abea through `cli run abea` at the JAX bench's input, its TSV held
+    to the port's CPU run; the bench's warm pipeline; the graphed loops
+    held bit for bit to the same blocks run eagerly, both timed, at
+    blocks of 32, 64 and 128 (medians of rotating rounds); small inputs
+    against the CPU; a warm run's split, launches a step, busy share,
+    peak memory and bound."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.io import bam_io
+    from genarchbench_tpu_torch.kernels import abea
+
+    ai = input_module("torch_abea_inputs")
+    model = ai.synth_model(0)
+    t0 = time.perf_counter()
+    seqs, sigs = ai.bench_input(model)
+    bench = WORK / "abea_bench"
+    bench.mkdir(exist_ok=True)
+    paths = ai.write_cli_case(bench, model, seqs, sigs, bam_io)
+    gen_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    tsv, roi_s = abea_cli(paths, "abea_bench")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = WORK / "abea_first64"
+    first.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    cpu64, cpu64_roi = abea_cli(
+        ai.write_cli_case(first, model, seqs[:64], sigs[:64], bam_io),
+        "abea_cpu64", cpu=True)
+    cpu64_s = time.perf_counter() - t0
+    cpu_s = cpu_roi = None
+    if cpu64_s * 4 <= 60:           # the whole input on the CPU too
+        t0 = time.perf_counter()
+        want, cpu_roi = abea_cli(paths, "abea_cpu", cpu=True)
+        cpu_s = time.perf_counter() - t0
+        got, compared = tsv, len(seqs)
+    else:
+        got = "".join(ln for i, ln in enumerate(tsv.splitlines(True))
+                      if i == 0 or int(ln.split("\t")[3]) < 64)
+        want, compared = cpu64, 64
+    if got != want:
+        a, b = got.splitlines(), want.splitlines()
+        bad = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b)))
+        fail(f"abea bench: the card's TSV vs the CPU run's on {compared} "
+             f"reads: {len(a)} vs {len(b)} lines, first difference at line "
+             f"{bad}")
+    n_rows = tsv.count("\n") - 1
+    print(f"abea bench cli: Data processing time {roi_s:.3f} s, {n_rows} "
+          f"rows; TSV byte for byte equal to the CPU run's on {compared} "
+          f"reads (CPU: 64 reads {cpu64_s:.1f} s"
+          + (f", 256 reads {cpu_s:.1f} s" if cpu_s else "") + ")")
+
+    def pipeline():                 # bench.py:412-419
+        ets = [abea.get_events(s) for s in sigs]
+        return ets, abea.align_batch(seqs, ets, model)
+
+    pipeline()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ets, pairs = pipeline()
+    pipe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ets = [abea.get_events(s) for s in sigs]
+    events_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    abea.align_batch(seqs, ets, model)
+    align_ms = (time.perf_counter() - t0) * 1e3
+    stats = {}
+    abea.align_batch(seqs, ets, model, stats=stats)
+    t0 = time.perf_counter()
+    sink = io.StringIO()
+    for i, (sq, et, pr) in enumerate(zip(seqs, ets, pairs)):
+        sh, sc = abea.estimate_scalings(sq, et, model)
+        abea.write_eventalign(sink, "tig1", 2000 * i, sq, pr, et, model, sh,
+                              sc, i)
+    emit_ms = (time.perf_counter() - t0) * 1e3
+    cells = sum((len(e) + len(s) - abea.KMER + 1) * abea.BANDWIDTH
+                for s, e in zip(seqs, ets))
+
+    # the graphed loops against the same blocks run eagerly on the card
+    host, NB, NE, NK = abea._host_inputs(seqs, ets, model)
+    graphed = abea_device_run(host, NB, True, abea.BLOCK)
+    eager = abea_device_run(host, NB, False, abea.BLOCK)
+    for name, g, e in zip(("bands", "traces", "blls"), graphed[0], eager[0]):
+        if g[:NB].cpu().numpy().tobytes() != e[:NB].cpu().numpy().tobytes():
+            fail(f"abea: the graphed {name} differ from the eager blocks'")
+    if not graphed[1] == eager[1] == pairs:
+        fail("abea: the graphed, eager and align_batch pair lists differ")
+    e_band_ms, e_bt_ms = eager[2], eager[3]
+    del eager
+    # the block lengths in rotating order, so that each runs first, second
+    # and third in as many rounds: per length the median band and
+    # backtrace ms, and the rounds in which it beat abea.BLOCK
+    runs = {block: [] for block in ABEA_BLOCKS}
+    for r in range(ABEA_BLOCK_ROUNDS):
+        for block in ABEA_BLOCKS[r % 3:] + ABEA_BLOCKS[:r % 3]:
+            _, p, band_ms, bt_ms = abea_device_run(host, NB, True, block)
+            if p != pairs:
+                fail(f"abea: blocks of {block} give other pair lists")
+            runs[block].append((band_ms, bt_ms))
+    by_block = {block: [statistics.median(x) for x in zip(*v)]
+                for block, v in runs.items()}
+    wins = {block: sum(sum(a) < sum(b) for a, b in zip(v, runs[abea.BLOCK]))
+            for block, v in runs.items() if block != abea.BLOCK}
+
+    small = abea_small_inputs(model)
+
+    # launches a step: the graphed bench run, and an eager run of 4 reads
+    t0 = time.perf_counter()
+    prof, prof_ms = profiled(lambda: abea.align_batch(seqs, ets, model))
+    calls, events, dev_ms = kineto_summary(prof, "abea.")
+    prof_wall_s = time.perf_counter() - t0
+    del prof
+    kernels = {sp: calls.get(f"abea.{sp}", (0, 0))[0]
+               for sp in ("band", "backtrace")}
+    graphs = {sp: calls.get(f"abea.{sp}", (0, 0))[1]
+              for sp in ("band", "backtrace")}
+    rng = np.random.default_rng(22)
+    few = [ai.random_seq(rng, 300) for _ in range(4)]
+    few_ets = [abea.get_events(ai.synth_signal(rng, model, s)) for s in few]
+    few_stats = {}
+    eprof, _ = profiled(lambda: abea._align(
+        few, few_ets, model, torch.device("cuda"), few_stats, graphed=False))
+    ecalls = kineto_summary(eprof, "abea.")[0]
+    eager_launches = {sp: sum(ecalls.get(f"abea.{sp}", (0, 0)))
+                      for sp in ("band", "backtrace")}
+    del eprof
+    # steps run: the band scan's padding steps count, as they launch
+    steps = {"band": stats["band_blocks"] * stats["block"],
+             "backtrace": stats["bt_steps"]}
+    few_steps = {"band": few_stats["band_blocks"] * few_stats["block"],
+                 "backtrace": few_stats["bt_steps"]}
+
+    B = len(seqs)
+    nbytes = NB * B * abea.BANDWIDTH * 5 + sum(a.nbytes for a in host.values())
+    ops = (NB - 2) * B * abea.BANDWIDTH * ABEA_OPS_PER_CELL
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP64_FLOPS
+    b_ms, b_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                             else "operations")
+    split = {k: stats[k] * 1e3 for k in ("prep_s", "h2d_s", "band_s",
+                                         "backtrace_s", "d2h_s", "pairs_s")}
+    row = dict(name="abea", route="torch ops replayed in CUDA graphs",
+               reads=B, bases=sum(len(s) for s in seqs), nb=NB, ne=NE, nk=NK,
+               events=sum(len(e) for e in ets), rows=n_rows,
+               band_steps=stats["band_steps"], bt_steps=stats["bt_steps"],
+               band_blocks=stats["band_blocks"],
+               bt_blocks=stats["bt_blocks"], block=abea.BLOCK,
+               ms=graphed[2] + graphed[3], plain_ms=e_band_ms + e_bt_ms,
+               library_ms=None, graphed_band_ms=graphed[2],
+               graphed_backtrace_ms=graphed[3], eager_band_ms=e_band_ms,
+               eager_backtrace_ms=e_bt_ms,
+               align_ms=align_ms, split_ms=split, emit_ms=emit_ms,
+               events_s=events_s, pipeline_s=pipe_s,
+               reads_per_s=B / pipe_s, band_cells=cells,
+               band_cells_per_s=cells / pipe_s, cli_roi_s=roi_s,
+               cli_band_cells_per_s=cells / roi_s, cpu_cli_64_s=cpu64_s,
+               cpu_cli_64_roi_s=cpu64_roi, cpu_cli_256_s=cpu_s,
+               cpu_cli_256_roi_s=cpu_roi, tsv_reads_compared=compared,
+               by_block_ms=by_block, by_block_runs_ms=runs,
+               by_block_wins=wins, kernel_launches=kernels,
+               graph_launches=graphs,
+               launches_per_step={sp: (kernels[sp] + graphs[sp]) / steps[sp]
+                                  for sp in steps},
+               eager_launches_per_step={
+                   sp: eager_launches[sp] / few_steps[sp] for sp in steps},
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               profile_wall_s=prof_wall_s, peak_gb=peak_gb, bound_ms=b_ms,
+               bound_by=b_by, bound_bytes=nbytes, bound_f64_ops=ops,
+               bench_input_s=gen_s, small_inputs=small, card=card)
+    print(f"abea bench pipeline (get_events + align_batch, warm): "
+          f"{pipe_s:.3f} s, {row['reads_per_s']:.2f} reads/s, "
+          f"{row['band_cells_per_s']:.4e} band cells/s ({cells} cells); "
+          f"get_events {events_s:.3f} s, align_batch {align_ms:.1f} ms; "
+          f"with a sync at each boundary: "
+          + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in split.items())
+          + f" ms; NB {NB} ({stats['band_steps']} band steps in "
+          f"{stats['band_blocks']} blocks, {stats['bt_steps']} backtrace "
+          f"steps in {stats['bt_blocks']}); eventalign rows "
+          f"{emit_ms:.1f} ms for {n_rows}")
+    print(f"abea graphed vs eager blocks on the card (bands, traces, blls "
+          f"and pairs bit for bit equal): band {graphed[2]:.1f} vs "
+          f"{e_band_ms:.1f} ms, backtrace {graphed[3]:.1f} vs {e_bt_ms:.1f} "
+          f"ms; graphed by block length (median of {ABEA_BLOCK_ROUNDS} "
+          f"rotating rounds): " + ", ".join(
+              f"{k}: {a:.1f} + {b:.1f} ms" for k, (a, b) in by_block.items())
+          + f"; rounds faster than {abea.BLOCK} in all: " + ", ".join(
+              f"{k}: {w} of {ABEA_BLOCK_ROUNDS}" for k, w in wins.items()))
+    print(f"abea launches: graphed run {kernels} kernel launches and "
+          f"{graphs} graph launches in the spans, "
+          + ", ".join(f"{sp} {v:.2f} a step" for sp, v in
+                      row["launches_per_step"].items())
+          + "; eager blocks " + ", ".join(
+              f"{sp} {v:.1f} a step" for sp, v in
+              row["eager_launches_per_step"].items())
+          + f"; {dev_ms:.1f} ms of device activity ({events} events) in a "
+          f"profiled run, {row['device_busy_share']:.1%} of its "
+          f"{prof_ms:.1f} ms (profile read in {prof_wall_s:.1f} s); bound "
+          f"{b_ms:.4f} ms ({b_by}); peak {peak_gb:.2f} GB; small inputs "
+          f"equal to the CPU: " + "; ".join(small))
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1150,9 +1498,9 @@ def main() -> int:
     lib_path = _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib_path}")
     t0 = time.perf_counter()
-    native_path = native.build()
+    native_path, bgzf_path = native.build(), native.build_bgzf()
     print(f"host helpers built in {time.perf_counter() - t0:.2f} s: "
-          f"{native_path}")
+          f"{native_path}, {bgzf_path}")
     for ln in ptxas_summary(lib_path.parent / "ptxas.txt"):
         print("  ptxas", ln)
     for ln in sass_loops(lib_path):
@@ -1173,7 +1521,8 @@ def main() -> int:
                                              max_anchors=512))
     print(f"chain bench input written in {time.perf_counter() - t0:.1f} s")
     row, records = chain_phase(card, bench)
-    paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card)]
+    paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card),
+              abea_phase(card)]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

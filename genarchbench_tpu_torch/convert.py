@@ -10,6 +10,8 @@ nn-base has weights: `basecall_state_from_jax` turns the JAX
 basecaller's flax variables into the port's (bonito's) state dict.
 fmi's state is its index: `fmi_index_from_jax` builds the port's
 `FMIndex` from a JAX `FMIndex`'s fields, so both search one index.
+abea's state is its pore model, a dict of three numpy arrays
+(`load_model`), which both packages take as it is: nothing to convert.
 """
 
 from __future__ import annotations

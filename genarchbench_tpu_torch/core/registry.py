@@ -23,6 +23,9 @@ class KernelSpec:
 
 
 _REGISTRY = {s.name: s for s in (
+    KernelSpec("abea", "genarchbench_tpu_torch.kernels.abea",
+               "adaptive banded event alignment (f5c eventalign)",
+               "tolerant_abea", "Data processing time:"),
     KernelSpec("bpm", "genarchbench_tpu_torch.kernels.bpm",
                "bit-parallel Myers edit distance", "sorted",
                "Time.Benchmark"),

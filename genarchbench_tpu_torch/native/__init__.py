@@ -1,19 +1,22 @@
 """The port's native (C) host helpers, built with the system compiler.
 
-At first use the sources (`wfa_cigars.c`, `chain.c`, `sais.c`) are
-compiled with `cc -O3 -shared -fPIC` (`$CC` overrides the compiler) into
-one library,
+At first use the sources (`wfa_cigars.c`, `chain.c`, `sais.c`,
+`peak_detect.c`) are compiled with `cc -O3 -shared -fPIC` (`$CC`
+overrides the compiler) into one library,
 
     build/torch_native/<hash of the sources and flags>/libgenarch_native.so
 
-and loaded with ctypes.  The build goes into a private directory that is
-renamed into place, so concurrent first uses never load a half-written
-library, and an edited source is rebuilt.  A failed build raises with
-the compiler's stderr: there is no Python fallback on the main path
-(the plain versions the tests hold these to are
-`kernels/wfa.py::_assemble_cigar`, `ChainRecord.window_starts`,
-`kernels/chain.py::gap_corrections_plain` and
-`kernels/fmi.py::suffix_array_plain`).
+and loaded with ctypes.  The BGZF decoder (`bgzf_native.c`) links zlib,
+so it is a second library, `libgenarch_bgzf.so`, built the same way: a
+host without zlib's headers fails only the BAM reader, not the other
+helpers.  A build goes into a private directory that is renamed into
+place, so concurrent first uses never load a half-written library, and
+an edited source is rebuilt.  A failed build raises with the compiler's
+stderr: there is no Python fallback on the main path (the plain versions
+the tests hold these to are `kernels/wfa.py::_assemble_cigar`,
+`ChainRecord.window_starts`, `kernels/chain.py::gap_corrections_plain`,
+`kernels/fmi.py::suffix_array_plain`, `kernels/abea.py::_peak_detect`
+and `io/bam_io.py::bgzf_read_plain`).
 """
 
 from __future__ import annotations
@@ -31,51 +34,81 @@ from typing import List, Optional
 import numpy as np
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c", _HERE / "sais.c"]
+SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c", _HERE / "sais.c",
+        _HERE / "peak_detect.c"]
 BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 LIB_NAME = "libgenarch_native.so"
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
+BGZF_SRCS = [_HERE / "bgzf_native.c"]
+BGZF_LIB_NAME = "libgenarch_bgzf.so"
+BGZF_LIBS = ["-lz"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_bgzf: Optional[ctypes.CDLL] = None
 
 
 def _compiler() -> str:
     return os.environ.get("CC", "cc")
 
 
-def build_dir() -> pathlib.Path:
+def build_dir(srcs=None, libs=()) -> pathlib.Path:
     h = hashlib.sha256()
-    for src in SRCS:
+    for src in SRCS if srcs is None else srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join([_compiler(), *CC_FLAGS]).encode())
+    h.update(" ".join([_compiler(), *CC_FLAGS, *libs]).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the helpers and return the library's path; a no-op when
-    it is already built."""
-    out = build_dir() / LIB_NAME
+def build(srcs=None, name: str = LIB_NAME, libs=()) -> pathlib.Path:
+    """Compile `srcs` (the helpers by default) into the library `name`,
+    linked with `libs`, and return its path; a no-op when it is already
+    built."""
+    srcs = SRCS if srcs is None else srcs
+    out = build_dir(srcs, libs) / name
     if out.exists():
         return out
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     try:
-        r = subprocess.run([_compiler(), *CC_FLAGS, "-o", str(tmp / LIB_NAME),
-                            *map(str, SRCS)], capture_output=True, text=True)
+        r = subprocess.run([_compiler(), *CC_FLAGS, "-o", str(tmp / name),
+                            *map(str, srcs), *libs], capture_output=True,
+                           text=True)
         if r.returncode != 0:
             raise RuntimeError(
-                f"{_compiler()} failed on {', '.join(s.name for s in SRCS)}:"
+                f"{_compiler()} failed on {', '.join(s.name for s in srcs)}:"
                 f"\n{r.stderr}")
         try:
-            os.replace(tmp, build_dir())
+            os.replace(tmp, build_dir(srcs, libs))
         except OSError:
             if not out.exists():   # not another process's finished build
                 raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def build_bgzf() -> pathlib.Path:
+    """The BGZF decoder's library, built at first use."""
+    return build(BGZF_SRCS, BGZF_LIB_NAME, BGZF_LIBS)
+
+
+def bgzf_library() -> ctypes.CDLL:
+    """The loaded BGZF decoder, built at first use."""
+    global _bgzf
+    with _lock:
+        if _bgzf is None:
+            lib = ctypes.CDLL(str(build_bgzf()))
+            lib.bgzf_decompressed_size.restype = ctypes.c_int64
+            lib.bgzf_decompressed_size.argtypes = [ctypes.c_char_p,
+                                                   ctypes.c_int64]
+            lib.bgzf_decompress.restype = ctypes.c_int64
+            lib.bgzf_decompress.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
+            _bgzf = lib
+        return _bgzf
 
 
 def library() -> ctypes.CDLL:
@@ -106,6 +139,11 @@ def library() -> ctypes.CDLL:
                 p32, p32, p32, p32]
             lib.sais_u8.restype = ctypes.c_int
             lib.sais_u8.argtypes = [pu8, i64, i64, p64]
+            pf32 = ctypes.POINTER(ctypes.c_float)
+            lib.peak_detect.restype = i64
+            lib.peak_detect.argtypes = [pf32, pf32, i64, ctypes.c_float,
+                                        ctypes.c_float, i64, i64,
+                                        ctypes.c_float, p64]
             _lib = lib
         return _lib
 
@@ -247,3 +285,36 @@ def sais(codes: np.ndarray) -> np.ndarray:
     if rc != 0:
         raise RuntimeError("sais: out of memory")
     return sa[1:]
+
+
+def peak_detect(t1: np.ndarray, t2: np.ndarray, thr1: float, thr2: float,
+                wl1: int, wl2: int, peak_height: float) -> np.ndarray:
+    """The sample positions (int64) of the peaks that abea's two-detector
+    peak finder (`peak_detect.c`) picks from the short- and long-window
+    t-statistics t1 and t2 (float32, one value a sample)."""
+    t1 = np.ascontiguousarray(t1, np.float32)
+    t2 = np.ascontiguousarray(t2, np.float32)
+    if t1.ndim != 1 or t2.shape != t1.shape:
+        raise ValueError(f"t1 and t2 must be one 1-D shape, got {t1.shape} "
+                         f"and {t2.shape}")
+    out = np.zeros(len(t1), np.int64)
+    pc = library().peak_detect(_ptr(t1, ctypes.c_float),
+                               _ptr(t2, ctypes.c_float), len(t1), thr1, thr2,
+                               wl1, wl2, peak_height,
+                               _ptr(out, ctypes.c_int64))
+    return out[:pc]
+
+
+def bgzf_decompress(raw: bytes) -> bytes:
+    """Every BGZF block of `raw` inflated and concatenated (C and zlib,
+    `bgzf_native.c`); raises ValueError on a framing or inflate error."""
+    lib = bgzf_library()
+    n = lib.bgzf_decompressed_size(raw, len(raw))
+    if n < 0:
+        raise ValueError("bgzf: bad BGZF framing")
+    buf = np.empty(n, np.uint8)
+    w = lib.bgzf_decompress(raw, len(raw), _ptr(buf, ctypes.c_uint8), n)
+    if w != n:
+        raise ValueError(f"bgzf: inflated {w} bytes of the {n} the blocks "
+                         "announce")
+    return buf.tobytes()

@@ -21,15 +21,16 @@ def on_cpu(monkeypatch):
 def test_list(capsys):
     assert cli.main(["list"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert [ln.split()[:2] for ln in lines] == [["bpm", "sorted"],
+    assert [ln.split()[:2] for ln in lines] == [["abea", "tolerant_abea"],
+                                                ["bpm", "sorted"],
                                                 ["bsw", "exact"],
                                                 ["chain", "exact"],
                                                 ["fast-chain", "exact"],
                                                 ["fmi", "exact"],
                                                 ["nn-base", "exact"],
                                                 ["wfa", "sorted"]]
-    assert [s.name for s in list_kernels()] == ["bpm", "bsw", "chain",
-                                                "fast-chain", "fmi",
+    assert [s.name for s in list_kernels()] == ["abea", "bpm", "bsw",
+                                                "chain", "fast-chain", "fmi",
                                                 "nn-base", "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
     assert get_kernel("wfa").timing_line == "Time.Alignment:"
@@ -37,8 +38,9 @@ def test_list(capsys):
     assert get_kernel("chain").timing_line == "Time in kernel:"
     assert get_kernel("fast-chain").timing_line == "Time in kernel:"
     assert get_kernel("fmi").timing_line == "Computing time:"
+    assert get_kernel("abea").timing_line == "Data processing time:"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("abea")
+        get_kernel("poa")
 
 
 def test_run_bpm(tmp_path, capsys):

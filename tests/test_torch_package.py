@@ -14,9 +14,10 @@ from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.entry import entry
 from genarchbench_tpu_torch.io.chain_io import ChainRecord
-from genarchbench_tpu_torch.kernels import (bpm, bsw, chain, fast_chain, fmi,
-                                            wfa)
+from genarchbench_tpu_torch.kernels import (abea, bpm, bsw, chain,
+                                            fast_chain, fmi, wfa)
 from genarchbench_tpu_torch.nn import basecall
+from tests import torch_abea_inputs
 from tests.synth import gen_bsw_input, gen_chain_input, gen_seqpair_dataset
 from tests.torch_fmi_inputs import gen_case
 
@@ -35,6 +36,9 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.kernels.chain, "
             "genarchbench_tpu_torch.kernels.fast_chain, "
             "genarchbench_tpu_torch.kernels.fmi, "
+            "genarchbench_tpu_torch.kernels.abea, "
+            "genarchbench_tpu_torch.io.bam_io, "
+            "genarchbench_tpu_torch.io.fast5_io, "
             "genarchbench_tpu_torch.io.chain_io, "
             "genarchbench_tpu_torch.sharding.batching; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
@@ -74,7 +78,7 @@ def test_no_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base", "chain",
-                                    "fast-chain", "fmi"])
+                                    "fast-chain", "fmi", "abea"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -96,6 +100,15 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     elif kernel == "fmi":
         fa, fq = gen_case(tmp_path, rng, ref_len=500, n_reads=2, read_len=50)
         argv = [str(fa), str(fq), "8", "19", "1"]
+    elif kernel == "abea":
+        from genarchbench_tpu_torch.io import bam_io
+        model = torch_abea_inputs.synth_model(0)
+        seq = torch_abea_inputs.random_seq(rng, 60)
+        p = torch_abea_inputs.write_cli_case(
+            tmp_path, model, [seq],
+            [torch_abea_inputs.synth_signal(rng, model, seq)], bam_io)
+        argv = ["-b", str(p["bam"]), "-g", str(p["ref"]), "-r",
+                str(p["npy"]), "--kmer-model", str(p["model"])]
     else:
         inp.write_text(gen_bsw_input(rng, n_pairs=4, ref_len=40,
                                      query_len=20))
@@ -119,6 +132,8 @@ def test_public_functions_default_to_the_card(monkeypatch):
                  lambda: chain.chain_batch(recs),
                  lambda: fast_chain.fast_chain_batch(recs),
                  lambda: fmi.FMISearch(fmi.build_index(np.zeros(8, np.uint8))),
+                 lambda: abea.align_batch(["ACGTACGT"], [np.ones((4, 4))],
+                                          torch_abea_inputs.synth_model(0)),
                  lambda: basecall.Basecaller.init(),
                  lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
