@@ -77,7 +77,24 @@ Phases (any failure exits non-zero and prints no result):
      kernel and graph launches in the `abea.band` / `abea.backtrace`
      spans per step (and an eager run's), the busy share, peak memory
      and bound;
- 11. a `{"paths": [...]}` line for the torch-op paths, a
+ 11. poa (torch ops replayed in CUDA graphs, no hand kernel): the JAX
+     bench's input (256 windows of 10 reads of a 250-base draw, 3%
+     substitutions, insertions and deletions, seed 105) through `cli run
+     poa`, its consensus lines equal to the port's CPU run (the whole
+     input when the CPU's first 32 windows project to at most 30 s for
+     all, else those 32); every round's walks of the graphed DP and walk
+     held bit for bit to the same blocks run eagerly on the card, both
+     timed, and the graphed runs at blocks of 4 and 8 (four rounds in
+     rotating order, medians); the DP's planes and start rows and the
+     walks, card against
+     CPU, on random rounds at P = 1, 2, 4, 8 in the closed-form and the
+     general-scan regime and at blocks of 7 and longer than the graph;
+     small CLI inputs (the general scan, identical reads, uneven windows
+     with empty reads) against the CPU; a warm run's `stats=` split, the
+     kernel and graph launches in the `poa.dp` / `poa.walk` spans per DP
+     row and walk step (and an eager run's), the busy share, peak memory,
+     cells/s and bound;
+ 12. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -106,7 +123,17 @@ stores and mismatch tables over 3.35 TB/s.  abea's is the larger of its
 inputs over 3.35 TB/s, and 15 float64 operations a band cell (the
 emission's subtract, divide, two multiplies and add, the three scores'
 five adds, two maxima and two compares, the band-range tests) over the
-data sheet's 34e12 FP64 FLOP/s outside the tensor cores.
+data sheet's 34e12 FP64 FLOP/s outside the tensor cores.  poa's is the
+larger of its DP's traffic, each rank x query cell of the live windows
+writing its H, F and O and its two code planes (20 bytes) and reading the
+H, F and O of each of its rank's predecessors (12 bytes each), over
+3.35 TB/s, and its integer operations over 1.67e13 op/s: 36 a cell (the
+match score and the diagonal, 2; the row's maximum, 2; H's two offset
+rows, prefix maxima, gap terms and maxima, 8; E's and Q's, 6; the six
+left-move tests with their adds, 12; the packing, 6) and 19 a cell and
+predecessor (the F and O candidates, 4 adds and 2 maxima; their running
+maxima and the diagonal's, 3; the diagonal's add; the nine traceback
+tests), counted from `kernels/poa.py::_dp_step`.
 """
 
 from __future__ import annotations
@@ -1482,6 +1509,282 @@ def abea_phase(card: str) -> dict:
     return row
 
 
+POA_CLOSED = (2, -4, -6, -2, -28, -1)      # m, n, g, e, q, c: the defaults
+POA_GENERAL = (2, -4, -6, -4, -2, -1)      # -o 2,1 -e 4,1: the max-plus scan
+POA_OPS_PER_CELL = 36
+POA_OPS_PER_PRED_CELL = 19
+POA_CPU_WINDOWS = 32
+POA_BLOCKS = (4, 8)
+POA_BLOCK_ROUNDS = 4
+
+
+def poa_cli(path: pathlib.Path, name: str, cpu: bool = False, flags=()):
+    """`cli run poa -s path` on the card or with GENARCH_DEVICE=cpu: (the
+    stdout, the `Runtime:` seconds)."""
+    with environ({"GENARCH_DEVICE": "cpu"} if cpu else {}):
+        out = run_cli(["run", "poa", "-s", str(path), *flags],
+                      WORK / f"{name}.err")
+    line = timing_line((WORK / f"{name}.err").read_text(), "Runtime:")
+    return out, float(line.split()[1].rstrip(","))
+
+
+def poa_rounds(batches, engine, stats=None):
+    """consensus_for_batches' rounds, keeping each round's raw walks:
+    (the walks by round, the consensus strings)."""
+    from genarchbench_tpu_torch.kernels import poa
+    graphs = [poa.new_graph() for _ in batches]
+    walks = []
+    for s in range(max(len(b) for b in batches)):
+        idx = [w for w, b in enumerate(batches) if s < len(b)]
+        got = engine.align_many([batches[w][s] for w in idx],
+                                [graphs[w] for w in idx], stats)
+        walks.append(got)
+        for k, w in enumerate(idx):
+            graphs[w].add_walk(got[k], batches[w][s])
+    return walks, [g.generate_consensus() for g in graphs]
+
+
+def same_walks(a, b) -> bool:
+    """Two runs' walks by round, bit for bit."""
+    import numpy as np
+    return all((x is None and y is None) or (
+        x is not None and y is not None
+        and all(np.array_equal(u, v) for u, v in zip(x, y)))
+        for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+
+
+def poa_small_inputs() -> list:
+    """The DP's planes and start rows and the walks, card (graphed) against
+    CPU, bit for bit, on random rounds at P = 1, 2, 4, 8 in both regimes
+    and at blocks of 7 and longer than the graph; `cli run poa` on small
+    inputs (the general scan, identical reads, uneven windows with empty
+    reads) against the CPU run."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.kernels import poa
+    pi = input_module("torch_poa_inputs")
+    done = []
+    for pen, regime in ((POA_CLOSED, "closed"), (POA_GENERAL, "general")):
+        for P, block in ((1, poa.BLOCK), (2, 7), (4, poa.BLOCK),
+                         (8, 128)):
+            arrays, nrows = pi.random_round(np.random.default_rng(P), 16,
+                                            120, 100, P, pen)
+            outs = []
+            for dev, blk in (("cuda", block), ("cpu", poa.BLOCK)):
+                t = [torch.from_numpy(arrays[k]).to(dev) for k in pi.ROUND]
+                planes, start = poa._convex_dp_rows(*t, nrows, pen, blk)
+                wi, wj = poa._poa_walk(planes, start, t[-1],
+                                       120 + t[1].shape[1] + 4, blk)
+                outs.append([x.cpu().numpy() for x in (
+                    planes[:, :nrows + 1, 0], planes[:, :nrows + 1, 1],
+                    start, wi, wj)])
+            bad = [i for i, (a, b) in enumerate(zip(*outs))
+                   if a.tobytes() != b.tobytes()]
+            if bad:
+                fail(f"poa {regime} P={P} block {block}: outputs {bad} of "
+                     f"(plane1, plane2, start_i, outi, outj) differ between "
+                     f"the card and the CPU")
+            done.append(f"{regime} P={P} block {block}")
+    rng = np.random.default_rng(31)
+    for name, text, flags in (
+            ("general scan", pi.batches_text(rng, (6, 8, 5), 90, 0.12),
+             ["-o", "2,1", "-e", "4,1"]),
+            ("identical reads",
+             "s0_0\nACGTACGTGG\ns1_1\nACGTACGTGG\ns1_2\nACGTACGTGG\n", []),
+            ("uneven windows", pi.batches_text(
+                rng, (3, 7, 1, 5), 60, 0.1, empty={(1, 2), (3, 0)}), [])):
+        path = WORK / f"poa_small_{len(done)}.fa"
+        path.write_text(text)
+        card, _ = poa_cli(path, "poa_small", flags=flags)
+        cpu, _ = poa_cli(path, "poa_small_cpu", cpu=True, flags=flags)
+        if card != cpu:
+            fail(f"poa {name}: the card's consensus lines differ from the "
+                 f"CPU run's")
+        done.append(name)
+    return done
+
+
+def poa_phase(card: str) -> dict:
+    """poa through `cli run poa` at the JAX bench's input, its consensus
+    lines held exactly to the port's CPU run; the graphed DP and walk held
+    bit for bit to the same blocks run eagerly on the card, both timed,
+    and timed at each of POA_BLOCKS; small inputs against the CPU; a warm run's split, launches a DP row
+    and a walk step, busy share, peak memory, cells/s and bound."""
+    import torch
+    from genarchbench_tpu_torch.kernels import poa
+
+    phase_t0 = time.perf_counter()
+    pi = input_module("torch_poa_inputs")
+    t0 = time.perf_counter()
+    text = pi.bench_input()
+    bench = WORK / "poa_bench.fa"
+    bench.write_text(text)
+    gen_s = time.perf_counter() - t0
+    batches = poa.read_batches(str(bench))
+
+    torch.cuda.reset_peak_memory_stats()
+    out, roi_s = poa_cli(bench, "poa_bench")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cons = out.splitlines()[1::2]
+    first = WORK / "poa_first.fa"
+    first.write_text("".join(text.splitlines(True)[:POA_CPU_WINDOWS * 20]))
+    t0 = time.perf_counter()
+    cpu_first, cpu_first_roi = poa_cli(first, "poa_cpu_first", cpu=True)
+    cpu_first_s = time.perf_counter() - t0
+    cpu_s = cpu_roi = None
+    if cpu_first_s * len(batches) / POA_CPU_WINDOWS <= 30:
+        t0 = time.perf_counter()
+        want, cpu_roi = poa_cli(bench, "poa_cpu", cpu=True)
+        cpu_s = time.perf_counter() - t0
+        got, compared = out, len(batches)
+    else:
+        got, want = "".join(out.splitlines(True)[:POA_CPU_WINDOWS * 2]), \
+            cpu_first
+        compared = POA_CPU_WINDOWS
+    if got != want or len(cons) != len(batches):
+        fail(f"poa bench: the card's consensus lines vs the CPU run's on "
+             f"{compared} windows differ ({len(cons)} windows)")
+    print(f"poa bench cli: Runtime {roi_s:.3f} s, {len(cons)} consensus "
+          f"lines of {min(map(len, cons))}-{max(map(len, cons))} bases, "
+          f"equal to the CPU run's on {compared} windows (CPU: "
+          f"{POA_CPU_WINDOWS} windows {cpu_first_s:.1f} s"
+          + (f", {len(batches)} windows {cpu_s:.1f} s" if cpu_s else "")
+          + ")")
+
+    # a warm run's split, then the graphed rounds against eager blocks
+    stats = {}
+    t0 = time.perf_counter()
+    warm = poa.consensus_for_batches(batches, poa.ConvexNWEngine(), stats)
+    warm_s = time.perf_counter() - t0
+    if warm != cons:
+        fail("poa: a warm consensus_for_batches differs from the CLI's")
+    g_stats, e_stats = {}, {}
+    graphed, g_cons = poa_rounds(batches, poa.ConvexNWEngine(), g_stats)
+    eager_engine = poa.ConvexNWEngine()
+    eager_engine.graphed = False
+    eager, e_cons = poa_rounds(batches, eager_engine, e_stats)
+    if not same_walks(graphed, eager) or g_cons != e_cons or g_cons != cons:
+        fail("poa: the graphed DP and walk give other walks than the same "
+             "blocks run eagerly on the card")
+    g_ms = {k: g_stats[k] * 1e3 for k in ("dp_s", "walk_s")}
+    e_ms = {k: e_stats[k] * 1e3 for k in ("dp_s", "walk_s")}
+    del graphed, eager
+    # the block lengths in rotating order, so that each runs first as
+    # often: per length the median DP and walk ms, and the rounds in
+    # which it beat poa.BLOCK
+    default = poa.BLOCK
+    runs = {block: [] for block in POA_BLOCKS}
+    try:
+        for r in range(POA_BLOCK_ROUNDS):
+            k = r % len(POA_BLOCKS)
+            for block in POA_BLOCKS[k:] + POA_BLOCKS[:k]:
+                poa.BLOCK = block
+                b_stats = {}
+                if poa.consensus_for_batches(batches, poa.ConvexNWEngine(),
+                                             b_stats) != cons:
+                    fail(f"poa: blocks of {block} give other consensus "
+                         f"lines")
+                runs[block].append((b_stats["dp_s"] * 1e3,
+                                    b_stats["walk_s"] * 1e3))
+    finally:
+        poa.BLOCK = default
+    by_block = {block: [statistics.median(x) for x in zip(*v)]
+                for block, v in runs.items()}
+    wins = {block: sum(sum(a) < sum(b) for a, b in zip(v, runs[default]))
+            for block, v in runs.items() if block != default}
+
+    small = poa_small_inputs()
+
+    # launches a DP row and a walk step: the graphed bench run, and an
+    # eager run of 2 windows of 3 reads
+    t0 = time.perf_counter()
+    prof, prof_ms = profiled(lambda: poa.consensus_for_batches(
+        batches, poa.ConvexNWEngine()))
+    calls, events, dev_ms = kineto_summary(prof, "poa.")
+    prof_wall_s = time.perf_counter() - t0
+    del prof
+    spans = ("dp", "walk")
+    kernels = {sp: calls.get(f"poa.{sp}", (0, 0))[0] for sp in spans}
+    graphs = {sp: calls.get(f"poa.{sp}", (0, 0))[1] for sp in spans}
+    few_stats = {}
+    eprof, _ = profiled(lambda: poa.consensus_for_batches(
+        [b[:3] for b in batches[:2]], eager_engine, few_stats))
+    ecalls = kineto_summary(eprof, "poa.")[0]
+    del eprof
+    eager_launches = {sp: sum(ecalls.get(f"poa.{sp}", (0, 0))) for sp in spans}
+    steps = {"dp": stats["dp_rows"], "walk": stats["walk_steps"]}
+    few_steps = {"dp": few_stats["dp_rows"], "walk": few_stats["walk_steps"]}
+
+    nbytes = stats["cells"] * 20 + stats["pred_cells"] * 12
+    ops = (stats["cells"] * POA_OPS_PER_CELL
+           + stats["pred_cells"] * POA_OPS_PER_PRED_CELL)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    split = {k: stats[k] * 1e3 for k in (
+        "export_s", "prep_s", "h2d_s", "dp_s", "walk_s", "d2h_s", "update_s",
+        "consensus_s")}
+    phase_s = time.perf_counter() - phase_t0
+    row = dict(name="poa", route="torch ops replayed in CUDA graphs",
+               windows=len(batches), reads=sum(map(len, batches)),
+               rounds=stats["rounds"], dispatches=stats["dispatches"],
+               dp_rows=stats["dp_rows"], dp_blocks=stats["dp_blocks"],
+               walk_steps=stats["walk_steps"],
+               walk_blocks=stats["walk_blocks"], block=poa.BLOCK,
+               ms=g_ms["dp_s"] + g_ms["walk_s"],
+               plain_ms=e_ms["dp_s"] + e_ms["walk_s"], library_ms=None,
+               graphed_dp_ms=g_ms["dp_s"], graphed_walk_ms=g_ms["walk_s"],
+               eager_dp_ms=e_ms["dp_s"], eager_walk_ms=e_ms["walk_s"],
+               by_block_ms=by_block, by_block_runs_ms=runs,
+               by_block_wins=wins,
+               cli_roi_s=roi_s, warm_s=warm_s, split_ms=split,
+               cells=stats["cells"], pred_cells=stats["pred_cells"],
+               dp_cells=stats["dp_cells"], cells_per_s=stats["cells"] / warm_s,
+               cli_cells_per_s=stats["cells"] / roi_s,
+               cpu_first_windows=POA_CPU_WINDOWS, cpu_first_s=cpu_first_s,
+               cpu_first_roi_s=cpu_first_roi, cpu_all_s=cpu_s,
+               cpu_all_roi_s=cpu_roi, windows_compared=compared,
+               kernel_launches=kernels, graph_launches=graphs,
+               launches_per_step={sp: (kernels[sp] + graphs[sp]) / steps[sp]
+                                  for sp in spans},
+               eager_launches_per_step={
+                   sp: eager_launches[sp] / few_steps[sp] for sp in spans},
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               profile_wall_s=prof_wall_s, peak_gb=peak_gb, bound_ms=b_ms,
+               bound_by=b_by, bound_bytes=nbytes, bound_int32_ops=ops,
+               bench_input_s=gen_s, phase_s=phase_s, small_inputs=small,
+               card=card)
+    print(f"poa warm consensus_for_batches: {warm_s:.3f} s, "
+          f"{row['cells_per_s']:.4e} cells/s ({stats['cells']} rank x query "
+          f"cells, {stats['dp_cells']} run); with a sync at each boundary: "
+          + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in split.items())
+          + f" ms; {stats['rounds']} rounds, {stats['dispatches']} "
+          f"dispatches, {stats['dp_rows']} DP rows in {stats['dp_blocks']} "
+          f"blocks, {stats['walk_steps']} walk steps in "
+          f"{stats['walk_blocks']}")
+    print(f"poa graphed vs eager blocks on the card (every round's walks "
+          f"and the consensus equal): DP {g_ms['dp_s']:.1f} vs "
+          f"{e_ms['dp_s']:.1f} ms, walk {g_ms['walk_s']:.1f} vs "
+          f"{e_ms['walk_s']:.1f} ms; graphed by block length (median of "
+          f"{POA_BLOCK_ROUNDS} rotating rounds): " + ", ".join(
+              f"{k}: {a:.1f} + {b:.1f} ms" for k, (a, b) in by_block.items())
+          + f"; rounds faster than {default} in all: " + ", ".join(
+              f"{k}: {w} of {POA_BLOCK_ROUNDS}" for k, w in wins.items()))
+    print(f"poa launches: graphed run {kernels} kernel launches and "
+          f"{graphs} graph launches in the spans, "
+          + ", ".join(f"{sp} {v:.2f} a step" for sp, v in
+                      row["launches_per_step"].items())
+          + "; eager blocks " + ", ".join(
+              f"{sp} {v:.1f} a step" for sp, v in
+              row["eager_launches_per_step"].items())
+          + f"; {dev_ms:.1f} ms of device activity ({events} events) in a "
+          f"profiled run, {row['device_busy_share']:.1%} of its "
+          f"{prof_ms:.1f} ms (profile read in {prof_wall_s:.1f} s); bound "
+          f"{b_ms:.4f} ms ({b_by}: {nbytes} bytes, {ops} int32 operations); "
+          f"peak {peak_gb:.2f} GB; small inputs equal to the CPU: "
+          + "; ".join(small) + f"; phase {phase_s:.1f} s")
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1522,7 +1825,7 @@ def main() -> int:
     print(f"chain bench input written in {time.perf_counter() - t0:.1f} s")
     row, records = chain_phase(card, bench)
     paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card),
-              abea_phase(card)]
+              abea_phase(card), poa_phase(card)]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,9 @@ fmi's state is its index: `fmi_index_from_jax` builds the port's
 `FMIndex` from a JAX `FMIndex`'s fields, so both search one index.
 abea's state is its pore model, a dict of three numpy arrays
 (`load_model`), which both packages take as it is: nothing to convert.
+poa has no weights: the state carried across is a round's DP inputs,
+which the JAX package hands its device function as one flat blob;
+`poa_round_from_jax` splits that blob into the port's named tensors.
 """
 
 from __future__ import annotations
@@ -112,3 +115,33 @@ def fmi_index_from_jax(count: np.ndarray, cp_count: np.ndarray,
     return FMIndex(np.array(count), np.array(cp_count),
                    np.array(oh_hi, np.uint32), np.array(oh_lo, np.uint32),
                    int(sentinel), int(seq_len))
+
+
+POA_ROUND = ("node_ch", "seq", "preds", "npred", "H0col", "F0col", "O0col",
+             "endmask", "Wlen")
+
+
+def poa_round_from_jax(blob: np.ndarray, R: int, W: int,
+                       P: int) -> Dict[str, torch.Tensor]:
+    """The JAX `_poa_align_device`'s flat int32 input blob of one round
+    (array-major: node_ch | seq | preds | npred | H0col | F0col | O0col |
+    endmask | Wlen, JAX poa.py:688-700) at its static R, W and P -> the
+    port's tensors by name on the CPU: node_ch (G, R), seq (G, W + 1),
+    preds (G, R, P), npred (G, R), H0col, F0col, O0col (G, R + 1) int32,
+    endmask (G, R) bool and Wlen (G,) int32."""
+    blob = np.asarray(blob, np.int32).ravel()
+    W1 = W + 1
+    shapes = ((R,), (W1,), (R, P), (R,), (R + 1,), (R + 1,), (R + 1,),
+              (R,), ())
+    per = sum(int(np.prod(sh)) for sh in shapes)
+    if blob.size % per:
+        raise ValueError(f"blob of {blob.size} words is no whole number of "
+                         f"{per}-word windows at R={R}, W={W}, P={P}")
+    G = blob.size // per
+    out, o = {}, 0
+    for name, sh in zip(POA_ROUND, shapes):
+        n = G * int(np.prod(sh))
+        out[name] = torch.from_numpy(blob[o:o + n].reshape(G, *sh).copy())
+        o += n
+    out["endmask"] = out["endmask"] != 0
+    return out

@@ -44,6 +44,9 @@ _REGISTRY = {s.name: s for s in (
     KernelSpec("fmi", "genarchbench_tpu_torch.kernels.fmi",
                "FM-index SMEM search (BWA-MEM2 seeding)", "exact",
                "Computing time:"),
+    KernelSpec("poa", "genarchbench_tpu_torch.kernels.poa",
+               "partial-order alignment consensus (spoa)", "exact",
+               "Runtime:"),
     KernelSpec("nn-base", "genarchbench_tpu_torch.nn.basecall",
                "QuartzNet-CTC nanopore basecalling (Bonito)", "exact",
                "> samples per second"),

@@ -56,6 +56,7 @@ import torch
 
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
+from genarchbench_tpu_torch.core.blocks import run_blocks
 from genarchbench_tpu_torch.core.roi import Laps, ROITimer
 
 KMER = 6
@@ -422,39 +423,6 @@ def _band_step(s: _BandState) -> None:
     s.b.add_(1)
 
 
-def _run_blocks(block, n_blocks: int, graphed: bool, done=None) -> int:
-    """Run `block` (one block of loop steps) up to n_blocks times, or
-    until done() after a block; returns the blocks run.  Graphed (on the
-    card): the first block runs eagerly on a side stream, one more is
-    captured as a CUDA graph and the graph is replayed for the rest."""
-    ran = 0
-    if not graphed:
-        while ran < n_blocks:
-            block()
-            ran += 1
-            if done is not None and done():
-                break
-        return ran
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        block()
-    torch.cuda.current_stream().wait_stream(side)
-    ran = 1
-    if ran == n_blocks or (done is not None and done()):
-        return ran
-    graph = torch.cuda.CUDAGraph()
-    # thread_local: run's loader thread keeps reading signals meanwhile
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        block()
-    while ran < n_blocks:
-        graph.replay()
-        ran += 1
-        if done is not None and done():
-            break
-    return ran
-
-
 def _band_scan(ranks, ev_mean, n_events, n_kmers, shift, scale, lm, lsd,
                llsd, lp_skip, lp_stay, lp_step, lp_trim, NB, block, graphed,
                counts=None):
@@ -469,7 +437,7 @@ def _band_scan(ranks, ev_mean, n_events, n_kmers, shift, scale, lm, lsd,
             _band_step(s)
 
     n_blocks = (s.bands.shape[0] - 2) // block
-    ran = _run_blocks(run_block, n_blocks, graphed)
+    ran = run_blocks(run_block, n_blocks, graphed)
     if counts is not None:
         counts.update(band_steps=NB - 2, band_blocks=ran)
     return s.bands, s.traces, s.blls
@@ -583,7 +551,7 @@ def _backtrace(bands, traces, blls, ranks, ev_mean, n_ev, n_km, shifts,
             _bt_step(s)
 
     n_blocks = math.ceil(T / block)
-    ran = _run_blocks(run_block, n_blocks, graphed,
+    ran = run_blocks(run_block, n_blocks, graphed,
                       done=lambda: bool(s.fin.all()))
     if counts is not None:
         counts.update(bt_steps=ran * block, bt_blocks=ran)

@@ -1,7 +1,7 @@
 """The port's native (C) host helpers, built with the system compiler.
 
 At first use the sources (`wfa_cigars.c`, `chain.c`, `sais.c`,
-`peak_detect.c`) are compiled with `cc -O3 -shared -fPIC` (`$CC`
+`peak_detect.c`, `poa_graph.c`) are compiled with `cc -O3 -shared -fPIC` (`$CC`
 overrides the compiler) into one library,
 
     build/torch_native/<hash of the sources and flags>/libgenarch_native.so
@@ -15,8 +15,8 @@ an edited source is rebuilt.  A failed build raises with the compiler's
 stderr: there is no Python fallback on the main path (the plain versions
 the tests hold these to are `kernels/wfa.py::_assemble_cigar`,
 `ChainRecord.window_starts`, `kernels/chain.py::gap_corrections_plain`,
-`kernels/fmi.py::suffix_array_plain`, `kernels/abea.py::_peak_detect`
-and `io/bam_io.py::bgzf_read_plain`).
+`kernels/fmi.py::suffix_array_plain`, `kernels/abea.py::_peak_detect`,
+`kernels/poa.py::Graph` and `io/bam_io.py::bgzf_read_plain`).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import numpy as np
 
 _HERE = pathlib.Path(__file__).resolve().parent
 SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c", _HERE / "sais.c",
-        _HERE / "peak_detect.c"]
+        _HERE / "peak_detect.c", _HERE / "poa_graph.c"]
 BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 LIB_NAME = "libgenarch_native.so"
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
@@ -144,6 +144,26 @@ def library() -> ctypes.CDLL:
             lib.peak_detect.argtypes = [pf32, pf32, i64, ctypes.c_float,
                                         ctypes.c_float, i64, i64,
                                         ctypes.c_float, p64]
+            vp = ctypes.c_void_p
+            lib.poa_new.restype = vp
+            lib.poa_new.argtypes = []
+            lib.poa_free.restype = None
+            lib.poa_free.argtypes = [vp]
+            lib.poa_add_alignment.restype = ctypes.c_int
+            lib.poa_add_alignment.argtypes = [
+                vp, ctypes.POINTER(ctypes.c_int16),
+                ctypes.POINTER(ctypes.c_int16), i64, pu8, i64, ctypes.c_int]
+            lib.poa_num_ranks.restype = i64
+            lib.poa_num_ranks.argtypes = [vp]
+            lib.poa_get_ranks.restype = None
+            lib.poa_get_ranks.argtypes = [vp, p32]
+            lib.poa_max_in_edges.restype = i64
+            lib.poa_max_in_edges.argtypes = [vp]
+            lib.poa_export_dp.restype = None
+            lib.poa_export_dp.argtypes = [vp, i64, p32, p32, p32, pu8, p64,
+                                          p64, i64, i64, i64, i64]
+            lib.poa_consensus.restype = i64
+            lib.poa_consensus.argtypes = [vp, pu8, i64]
             _lib = lib
         return _lib
 

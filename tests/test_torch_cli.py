@@ -28,10 +28,11 @@ def test_list(capsys):
                                                 ["fast-chain", "exact"],
                                                 ["fmi", "exact"],
                                                 ["nn-base", "exact"],
+                                                ["poa", "exact"],
                                                 ["wfa", "sorted"]]
     assert [s.name for s in list_kernels()] == ["abea", "bpm", "bsw",
                                                 "chain", "fast-chain", "fmi",
-                                                "nn-base", "wfa"]
+                                                "nn-base", "poa", "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
     assert get_kernel("wfa").timing_line == "Time.Alignment:"
     assert get_kernel("nn-base").timing_line == "> samples per second"
@@ -39,8 +40,9 @@ def test_list(capsys):
     assert get_kernel("fast-chain").timing_line == "Time in kernel:"
     assert get_kernel("fmi").timing_line == "Computing time:"
     assert get_kernel("abea").timing_line == "Data processing time:"
+    assert get_kernel("poa").timing_line == "Runtime:"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("poa")
+        get_kernel("kmer-cnt")
 
 
 def test_run_bpm(tmp_path, capsys):

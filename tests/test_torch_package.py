@@ -15,9 +15,9 @@ from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.entry import entry
 from genarchbench_tpu_torch.io.chain_io import ChainRecord
 from genarchbench_tpu_torch.kernels import (abea, bpm, bsw, chain,
-                                            fast_chain, fmi, wfa)
+                                            fast_chain, fmi, poa, wfa)
 from genarchbench_tpu_torch.nn import basecall
-from tests import torch_abea_inputs
+from tests import torch_abea_inputs, torch_poa_inputs
 from tests.synth import gen_bsw_input, gen_chain_input, gen_seqpair_dataset
 from tests.torch_fmi_inputs import gen_case
 
@@ -37,6 +37,8 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.kernels.fast_chain, "
             "genarchbench_tpu_torch.kernels.fmi, "
             "genarchbench_tpu_torch.kernels.abea, "
+            "genarchbench_tpu_torch.kernels.poa, "
+            "genarchbench_tpu_torch.core.blocks, "
             "genarchbench_tpu_torch.io.bam_io, "
             "genarchbench_tpu_torch.io.fast5_io, "
             "genarchbench_tpu_torch.io.chain_io, "
@@ -78,7 +80,7 @@ def test_no_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base", "chain",
-                                    "fast-chain", "fmi", "abea"])
+                                    "fast-chain", "fmi", "abea", "poa"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -109,6 +111,9 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
             [torch_abea_inputs.synth_signal(rng, model, seq)], bam_io)
         argv = ["-b", str(p["bam"]), "-g", str(p["ref"]), "-r",
                 str(p["npy"]), "--kmer-model", str(p["model"])]
+    elif kernel == "poa":
+        inp.write_text(torch_poa_inputs.batches_text(rng, (3,), 30))
+        argv = ["-s", str(inp)]
     else:
         inp.write_text(gen_bsw_input(rng, n_pairs=4, ref_len=40,
                                      query_len=20))
@@ -134,6 +139,7 @@ def test_public_functions_default_to_the_card(monkeypatch):
                  lambda: fmi.FMISearch(fmi.build_index(np.zeros(8, np.uint8))),
                  lambda: abea.align_batch(["ACGTACGT"], [np.ones((4, 4))],
                                           torch_abea_inputs.synth_model(0)),
+                 lambda: poa.ConvexNWEngine(),
                  lambda: basecall.Basecaller.init(),
                  lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
