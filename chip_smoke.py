@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. the card's name and power limit (nvidia-smi), the kernels' build
-     and the host helpers' (the C helpers' library and the BGZF
-     decoder's, which links zlib);
+     and the host helpers' (the C helpers' library and the readers'
+     library, BGZF and FASTA, which links zlib);
   2. bpm: the reference-sized input (4096 pairs of 480 bases, 12% error,
      bench.py's seed) through `cli run bpm`; the kernel must have been
      launched, agree exactly with its plain PyTorch version on the card
@@ -94,7 +94,29 @@ Phases (any failure exits non-zero and prints no result):
      kernel and graph launches in the `poa.dp` / `poa.walk` spans per DP
      row and walk step (and an eager run's), the busy share, peak memory,
      cells/s and bound;
- 12. a `{"paths": [...]}` line for the torch-op paths, a
+ 12. kmer-cnt (torch ops, no hand kernel): bench.py's input (120 reads of
+     20000 +- 2000 bases, seed 4242, k = 17, --min-ovlp 5000) and ten
+     times its reads (1200, about 24 Mbp) through `cli run kmer-cnt`,
+     each `Total k-mers` equal to the port's CPU run; the minimizer route
+     (use_minimizers = 1, window 5) on the bench input equal to the CPU
+     run; per size a warm run's split (host packing, copy, codes, sort
+     and count), launches in the `kmer.codes` / `kmer.count` spans, busy
+     share, peak memory, the codes and the count by CUDA events and the
+     count against torch.unique;
+ 13. dbg (torch ops, no hand kernel): bench.py's input (500 kb reference,
+     25,000 reads of 150 bases, seed 108): the card's admissibility
+     masks equal to the CPU's for every read, the mask by CUDA events
+     against a max-pool running minimum; `cli run dbg` over the whole
+     region at verbose 0 (its timing line), and the sub-region
+     DBG_SUBREGION at verbose 1 (4 windows, about 40 MB of lines) sorted-
+     equal to the CPU run; launches in the `dbg.mask` span, busy share;
+ 14. pileup (torch ops, no hand kernel): bench.py's input (60,000 reads
+     of 300 bases over 500 kb, seed 107, five 100 kb chunks) through `cli
+     run pileup`, its stdout byte for byte equal to the port's CPU run; a
+     warm run's split (C walk, layout, copies, scatter, copy back),
+     launches in the `pileup.scatter` spans, busy share, peak memory, the
+     scatter by CUDA events against torch.bincount;
+ 15. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -133,7 +155,14 @@ rows, prefix maxima, gap terms and maxima, 8; E's and Q's, 6; the six
 left-move tests with their adds, 12; the packing, 6) and 19 a cell and
 predecessor (the F and O candidates, 4 adds and 2 maxima; their running
 maxima and the diagonal's, 3; the diagonal's add; the nine traceback
-tests), counted from `kernels/poa.py::_dp_step`.
+tests), counted from `kernels/poa.py::_dp_step`.  kmer-cnt's is the
+bytes of its codes through the sort (the bases read, each 8-byte code
+written, read and written by the sort and read by the count, 32 bytes
+a code) against 4k int32 operations a code (two int64 adds a base);
+dbg's mask the bytes of its inputs (is-N, int32 qualities, lengths)
+and its bool output against 6 operations a cell; pileup's the bytes of
+its events (two int32 each), the positions' first columns and the
+int32 count matrix written once, against 4 operations an event.
 """
 
 from __future__ import annotations
@@ -1785,6 +1814,361 @@ def poa_phase(card: str) -> dict:
     return row
 
 
+KMER_K = 17
+KMER_BIG_READS = 1200          # bench.py's BENCH_KMER_READS x 10
+KMER_REPS = 5
+DBG_SUBREGION = "tig1:100001-103000"     # 4 windows of about 10 MB each
+PILEUP_REPS = 20
+
+
+def kmer_cli(reads, cfg, name: str, cpu: bool = False):
+    """`cli run kmer-cnt` at --min-ovlp 5000 on the card or with
+    GENARCH_DEVICE=cpu: (the `Total k-mers` count, the `Minimizers` line,
+    the `Kernel time` seconds)."""
+    with environ({"GENARCH_DEVICE": "cpu"} if cpu else {}):
+        run_cli(["run", "kmer-cnt", "--reads", str(reads), "--config",
+                 str(cfg)], WORK / f"{name}.err")
+    err = (WORK / f"{name}.err").read_text()
+    return (int(timing_line(err, "Total k-mers").split()[-1]),
+            timing_line(err, "Minimizers"),
+            float(timing_line(err, "Kernel time:").split()[2]))
+
+
+def kmer_size(path, cfg, name: str) -> dict:
+    """One read set through `cli run kmer-cnt`, card against CPU; a warm
+    run's split, launches in the `kmer.codes` / `kmer.count` spans, busy
+    share; the codes and the count timed by CUDA events, the count
+    against torch.unique; peak memory and bound."""
+    import torch
+    from genarchbench_tpu_torch.io.fasta_io import read_fasta
+    from genarchbench_tpu_torch.kernels import kmer
+
+    torch.cuda.reset_peak_memory_stats()
+    total, _, roi_s = kmer_cli(path, cfg, f"kmer_{name}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    cpu_total, _, cpu_roi_s = kmer_cli(path, cfg, f"kmer_{name}_cpu",
+                                       cpu=True)
+    cpu_s = time.perf_counter() - t0
+    if total != cpu_total:
+        fail(f"kmer-cnt {name}: Total k-mers {total} on the card, "
+             f"{cpu_total} on the CPU")
+
+    reads = read_fasta(str(path), min_len=5000)
+    stats = {}
+    t0 = time.perf_counter()
+    if kmer.count_distinct(reads, KMER_K, stats=stats) != total:
+        fail(f"kmer-cnt {name}: a warm count_distinct differs from the CLI")
+    warm_s = time.perf_counter() - t0
+    cpu_stats = {}
+    kmer.count_distinct(reads, KMER_K, device="cpu", stats=cpu_stats)
+    prof, prof_ms = profiled(lambda: kmer.count_distinct(reads, KMER_K))
+    calls, events, dev_ms = kineto_summary(prof, "kmer.")
+    del prof
+    launches = {sp: calls.get(f"kmer.{sp}", (0, 0))[0]
+                for sp in ("codes", "count")}
+
+    batches = [(torch.from_numpy(a).cuda(), torch.from_numpy(n).cuda())
+               for a, n in kmer._batches(reads, KMER_K, 1 << 25)]
+    codes = torch.cat([kmer._codes_device(a, n, KMER_K).reshape(-1)
+                       for a, n in batches])
+
+    def library():
+        u, c = torch.unique(codes, return_counts=True)
+        return ((c + 255) // 256)[u < kmer.SENTINEL].sum()
+
+    if int(library()) != total:
+        fail(f"kmer-cnt {name}: torch.unique's count differs")
+    codes_ms = event_ms(lambda: [kmer._codes_device(a, n, KMER_K)
+                                 for a, n in batches], KMER_REPS)
+    count_ms = event_ms(lambda: kmer._distinct_count_device(codes),
+                        KMER_REPS)
+    library_ms = event_ms(library, KMER_REPS)
+    N = codes.numel()
+    nbytes = sum(a.numel() for a, _ in batches) + 32 * N
+    b_ms, b_by = bound_ms(nbytes, 4 * KMER_K * N)
+    del batches, codes
+    row = dict(total=total, reads=len(reads), bases=sum(map(len, reads.seqs)),
+               codes=N, batches=stats["batches"], cli_roi_s=roi_s,
+               cpu_roi_s=cpu_roi_s, cpu_cli_s=cpu_s, warm_s=warm_s,
+               split_ms={k: stats[k] * 1e3 for k in (
+                   "pack_s", "h2d_s", "codes_s", "count_s")},
+               cpu_split_ms={k: cpu_stats[k] * 1e3 for k in (
+                   "pack_s", "h2d_s", "codes_s", "count_s")},
+               codes_ms=codes_ms, count_ms=count_ms, library_ms=library_ms,
+               ms=codes_ms + count_ms,
+               plain_ms=(cpu_stats["codes_s"] + cpu_stats["count_s"]) * 1e3,
+               launches=launches, profiled_device_ms=dev_ms,
+               device_events=events, profiled_ms=prof_ms,
+               device_busy_share=dev_ms / prof_ms, peak_gb=peak_gb,
+               bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+               bound_int32_ops=4 * KMER_K * N)
+    print(f"kmer-cnt {name} ({len(reads)} reads, {row['bases']} bases): "
+          f"Total k-mers {total} on the card and the CPU; Kernel time "
+          f"{roi_s:.3f} s (CPU {cpu_roi_s:.3f} s); warm {warm_s * 1e3:.1f} "
+          f"ms: " + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in
+                              row["split_ms"].items())
+          + f" ms ({stats['batches']} batches, {N} codes); CUDA events: "
+          f"codes {codes_ms:.3f} ms, count {count_ms:.3f} ms, torch.unique "
+          f"{library_ms:.3f} ms; launches {launches}; {dev_ms:.1f} ms of "
+          f"device activity ({events} events), busy "
+          f"{row['device_busy_share']:.1%} of {prof_ms:.1f} ms; peak "
+          f"{peak_gb:.2f} GB; bound {b_ms:.4f} ms ({b_by})")
+    return row
+
+
+def kmer_phase(card: str) -> dict:
+    """kmer-cnt through `cli run kmer-cnt` at bench.py's input (120 reads of
+    20000 +- 2000 bases, k = 17, --min-ovlp 5000) and at ten times its
+    reads, each count equal to the port's CPU run; the minimizer route
+    (use_minimizers = 1, window 5) equal to the CPU run; each size's
+    split, launches, busy share, peak memory and bound."""
+    phase_t0 = time.perf_counter()
+    ki = input_module("torch_kmer_inputs")
+    t0 = time.perf_counter()
+    bench, big = WORK / "kmer_bench.fa", WORK / "kmer_bench10.fa"
+    ki.bench_fasta(bench)
+    ki.bench_fasta(big, n_reads=KMER_BIG_READS)
+    cfg, mcfg = WORK / "kmer.cfg", WORK / "kmer_min.cfg"
+    ki.write_config(cfg, k=KMER_K)
+    ki.write_config(mcfg, k=KMER_K, use_minimizers=1, window=5)
+    gen_s = time.perf_counter() - t0
+    sizes = {"bench": kmer_size(bench, cfg, "bench"),
+             "bench10": kmer_size(big, cfg, "bench10")}
+    m_total, m_line, m_roi = kmer_cli(bench, mcfg, "kmer_min")
+    c_total, c_line, c_roi = kmer_cli(bench, mcfg, "kmer_min_cpu", cpu=True)
+    if not m_line or (m_total, m_line) != (c_total, c_line):
+        fail(f"kmer-cnt minimizers: {m_line!r} on the card, {c_line!r} on "
+             f"the CPU")
+    phase_s = time.perf_counter() - phase_t0
+    b = sizes["bench"]
+    print(f"kmer-cnt minimizers: {m_line.strip()}, equal to the CPU run; "
+          f"Kernel time {m_roi:.3f} s (CPU {c_roi:.3f} s, host-only route); "
+          f"inputs written in {gen_s:.1f} s; phase {phase_s:.1f} s")
+    return dict(name="kmer-cnt", route="torch ops", ms=b["ms"],
+                plain_ms=b["plain_ms"], library_ms=b["library_ms"],
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                launches=b["launches"], sizes=sizes,
+                minimizers=dict(line=m_line.strip(), roi_s=m_roi,
+                                cpu_roi_s=c_roi),
+                bench_input_s=gen_s, phase_s=phase_s, card=card)
+
+
+def dbg_phase(card: str) -> dict:
+    """dbg at bench.py's input (500 kb reference, 25,000 reads of 150
+    bases, seed 108): the card's admissibility masks equal to the CPU's
+    for every read, the mask timed by CUDA events against its plain
+    version and a max-pool; `cli run dbg` over the whole region at
+    verbose 0 for the timing line; a sub-region at verbose 1 sorted-equal
+    to the CPU run; launches, busy share, bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from genarchbench_tpu_torch.io import bam_io
+    from genarchbench_tpu_torch.kernels import dbg
+
+    phase_t0 = time.perf_counter()
+    di = input_module("torch_dbg_inputs")
+    d = WORK / "dbg"
+    d.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    bam, fa = di.bench_case(d, bam_io)
+    gen_s = time.perf_counter() - t0
+
+    _, records = bam_io.read_bam(str(bam))
+    seqs = [r.seq for r in records]
+    quals = [r.qual for r in records]
+    t0 = time.perf_counter()
+    card_m = dbg._window_min_mask(seqs, quals)
+    mask_s = time.perf_counter() - t0
+    cpu_m = dbg._window_min_mask(seqs, quals, device="cpu")
+    if not all(np.array_equal(a, b) for x, y in zip(card_m, cpu_m)
+               for a, b in zip(x, y)):
+        fail("dbg: the card's admissibility masks differ from the CPU's")
+    isn, q, _, lens = dbg._mask_inputs(seqs, quals)
+    args = [torch.from_numpy(a).cuda() for a in (isn, q, lens)]
+    ms = event_ms(lambda: dbg._admissible_device(*args, dbg.KMER), 20)
+    cpu_args = [a.cpu() for a in args]
+    t0 = time.perf_counter()
+    dbg._admissible_device(*cpu_args, dbg.KMER)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    m = torch.where(args[0], -1, args[1]).float()
+
+    def library():
+        run_min = -F.max_pool1d(-m[:, None], dbg.KMER + 1, 1)[:, 0]
+        return torch.cat([run_min, m.new_full((m.shape[0], dbg.KMER),
+                                              dbg.QUAL_PAD)], 1)
+
+    want = dbg._admissible_device(*args, dbg.KMER)
+    pos = torch.arange(m.shape[1], device=m.device)
+    got = (library() >= dbg.MIN_QUAL) & (pos < args[2][:, None] - dbg.KMER)
+    if not torch.equal(got, want):
+        fail("dbg: the max-pool running minimum differs from the mask")
+    library_ms = event_ms(library, 20)
+    prof, prof_ms = profiled(lambda: dbg._window_min_mask(seqs, quals))
+    calls, events, dev_ms = kineto_summary(prof, "dbg.")
+    del prof
+    launches = calls.get("dbg.mask", (0, 0))[0]
+    nbytes = isn.nbytes + q.nbytes + lens.nbytes + isn.size
+    b_ms, b_by = bound_ms(nbytes, 6 * isn.size)
+
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["run", "dbg", str(bam), di.BENCH_REGION, str(fa), "1"]
+    if run_cli(argv + ["0"], WORK / "dbg_bench.err"):
+        fail("dbg: verbose 0 printed graph lines")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    roi_s = float(timing_line((WORK / "dbg_bench.err").read_text(),
+                              "Kernel runtime:").split()[2])
+    sub = argv[:3] + [DBG_SUBREGION] + argv[4:] + ["1"]
+    t0 = time.perf_counter()
+    card_out = run_cli(sub, WORK / "dbg_sub.err")
+    sub_s = time.perf_counter() - t0
+    with environ({"GENARCH_DEVICE": "cpu"}):
+        cpu_out = run_cli(sub, WORK / "dbg_sub_cpu.err")
+    lines = card_out.splitlines()
+    if not lines or sorted(lines) != sorted(cpu_out.splitlines()):
+        fail(f"dbg {DBG_SUBREGION}: the card's lines differ from the CPU "
+             f"run's")
+    phase_s = time.perf_counter() - phase_t0
+    row = dict(name="dbg", route="torch ops", reads=len(seqs),
+               cells=int(isn.size), ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, launches=launches,
+               bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+               mask_wall_ms=mask_s * 1e3, cli_roi_s=roi_s,
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               peak_gb=peak_gb, subregion=DBG_SUBREGION,
+               subregion_lines=len(lines), subregion_bytes=len(card_out),
+               subregion_cli_s=sub_s, bench_input_s=gen_s, phase_s=phase_s,
+               card=card)
+    print(f"dbg bench ({len(seqs)} reads): masks equal to the CPU's for "
+          f"every read; mask {ms:.3f} ms by CUDA events (plain on the CPU "
+          f"{plain_ms:.1f} ms, max-pool {library_ms:.3f} ms), "
+          f"_window_min_mask {mask_s * 1e3:.1f} ms of wall, {launches} "
+          f"launches, {dev_ms:.2f} ms of device activity ({events} events), "
+          f"busy {row['device_busy_share']:.1%} of {prof_ms:.1f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}); `cli run dbg` verbose 0: Kernel "
+          f"runtime {roi_s:.2f} s, peak {peak_gb:.3f} GB; {DBG_SUBREGION} "
+          f"verbose 1: {len(lines)} lines, {len(card_out)} bytes, sorted-"
+          f"equal to the CPU run ({sub_s:.1f} s on the card's CLI); input "
+          f"written in {gen_s:.1f} s; phase {phase_s:.1f} s")
+    return row
+
+
+def pileup_phase(card: str) -> dict:
+    """pileup at bench.py's input (60,000 reads of 300 bases over 500 kb,
+    seed 107, five 100 kb chunks) through `cli run pileup`, its stdout
+    byte for byte equal to the port's CPU run; a warm run's split (C walk,
+    layout, copies, scatter, copy back), launches in the `pileup.scatter`
+    spans, busy share, peak memory; the scatter timed by CUDA events
+    against its plain version and torch.bincount; bound."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch import native
+    from genarchbench_tpu_torch.io import bam_io
+    from genarchbench_tpu_torch.kernels import pileup
+
+    phase_t0 = time.perf_counter()
+    pi = input_module("torch_pileup_inputs")
+    bam = WORK / "pileup_bench.bam"
+    t0 = time.perf_counter()
+    pi.bench_bam(bam, bam_io)
+    gen_s = time.perf_counter() - t0
+    argv = ["run", "pileup", str(bam), pi.BENCH_REGION, "1"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_cli(argv, WORK / "pileup_bench.err")
+    cli_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    roi_s = float(timing_line((WORK / "pileup_bench.err").read_text(),
+                              "Kernel runtime:").split()[2])
+    with environ({"GENARCH_DEVICE": "cpu"}):
+        cpu_out = run_cli(argv, WORK / "pileup_cpu.err")
+    cpu_roi_s = float(timing_line((WORK / "pileup_cpu.err").read_text(),
+                                  "Kernel runtime:").split()[2])
+    if out != cpu_out:
+        fail("pileup bench: the card's stdout differs from the CPU run's")
+
+    _, records = bam_io.read_bam(str(bam))
+    end = 500_000
+    chunks = [(max(s - 1, 0), min(s + pileup.CHUNK_LEN, end))
+              for s in range(0, end, pileup.CHUNK_LEN)]
+
+    def chunked(stats=None):
+        return [pileup.calculate_pileup(records, 0, s, e, device_out=True,
+                                        stats=stats) for s, e in chunks]
+
+    chunked()
+    stats = {}
+    t0 = time.perf_counter()
+    mats = chunked(stats)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [m[2].cpu().numpy() for m in mats]
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    prof, prof_ms = profiled(chunked)
+    calls, events, dev_ms = kineto_summary(prof, "pileup.")
+    del prof
+    launches = calls.get("pileup.scatter", (0, 0))[0]
+
+    flat = pileup._flatten_records(records)
+    inputs, lib_inputs, nbytes = [], [], 0
+    for s, e in chunks:
+        cov, present, p, j, f = native.pileup_events(
+            flat, 0, s, e, pileup.FILTER_FLAGS, pileup.NUM2COUNTBASE)
+        colof, ncols = pileup._column_layout(cov, present, s, e)[2:4]
+        a = (torch.from_numpy(colof.astype(np.int32)).cuda(),
+             torch.from_numpy(p).cuda(),
+             torch.from_numpy(j * pileup.WIDTH + f).cuda(), ncols)
+        inputs.append(a)
+        lib_inputs.append(((a[0][a[1].long()] * pileup.WIDTH + a[2]).long(),
+                           ncols * pileup.WIDTH))
+        nbytes += 8 * len(p) + 4 * len(colof) + 4 * ncols * pileup.WIDTH
+    ms = event_ms(lambda: [pileup._scatter_counts(*a) for a in inputs],
+                  PILEUP_REPS)
+    cpu_inputs = [tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
+                  for a in inputs]
+    t0 = time.perf_counter()
+    for a, h in zip(cpu_inputs, host):
+        if not np.array_equal(pileup._scatter_counts(*a).numpy(), h):
+            fail("pileup: the CPU scatter differs from the card's matrix")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for (idx, size), h in zip(lib_inputs, host):
+        if not np.array_equal(torch.bincount(idx, minlength=size)
+                              .cpu().numpy(), h.ravel()):
+            fail("pileup: torch.bincount differs from the scatter")
+    library_ms = event_ms(lambda: [torch.bincount(idx, minlength=size)
+                                   for idx, size in lib_inputs], PILEUP_REPS)
+    b_ms, b_by = bound_ms(nbytes, 4 * stats["events"])
+    phase_s = time.perf_counter() - phase_t0
+    split = {k: stats[k] * 1e3 for k in ("walk_s", "layout_s", "h2d_s",
+                                         "scatter_s")}
+    split["d2h_s"] = d2h_ms
+    row = dict(name="pileup", route="torch ops", chunks=len(chunks),
+               events=stats["events"], cols=stats["cols"], ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, launches=launches,
+               bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+               cli_roi_s=roi_s, cpu_roi_s=cpu_roi_s, cli_s=cli_s,
+               stdout_bytes=len(out), warm_s=warm_s, split_ms=split,
+               profiled_device_ms=dev_ms, device_events=events,
+               profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               peak_gb=peak_gb, bench_input_s=gen_s, phase_s=phase_s,
+               card=card)
+    print(f"pileup bench: stdout ({len(out)} bytes) equal to the CPU run's "
+          f"byte for byte; Kernel runtime {roi_s:.2f} s (CPU {cpu_roi_s:.2f} "
+          f"s); warm 5 chunks {warm_s * 1e3:.1f} ms: "
+          + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in split.items())
+          + f" ms; {stats['events']} events, {stats['cols']} columns; "
+          f"scatter {ms:.3f} ms by CUDA events (CPU {plain_ms:.1f} ms, "
+          f"torch.bincount {library_ms:.3f} ms); {launches} launches in the "
+          f"scatter spans; {dev_ms:.2f} ms of device activity ({events} "
+          f"events), busy {row['device_busy_share']:.1%} of {prof_ms:.1f} "
+          f"ms; peak {peak_gb:.3f} GB; bound {b_ms:.4f} ms ({b_by}); input "
+          f"written in {gen_s:.1f} s; phase {phase_s:.1f} s")
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1801,9 +2185,9 @@ def main() -> int:
     lib_path = _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: {lib_path}")
     t0 = time.perf_counter()
-    native_path, bgzf_path = native.build(), native.build_bgzf()
+    native_path, zlib_path = native.build(), native.build_zlib()
     print(f"host helpers built in {time.perf_counter() - t0:.2f} s: "
-          f"{native_path}, {bgzf_path}")
+          f"{native_path}, {zlib_path}")
     for ln in ptxas_summary(lib_path.parent / "ptxas.txt"):
         print("  ptxas", ln)
     for ln in sass_loops(lib_path):
@@ -1825,7 +2209,8 @@ def main() -> int:
     print(f"chain bench input written in {time.perf_counter() - t0:.1f} s")
     row, records = chain_phase(card, bench)
     paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card),
-              abea_phase(card), poa_phase(card)]
+              abea_phase(card), poa_phase(card), kmer_phase(card),
+              dbg_phase(card), pileup_phase(card)]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ abea's state is its pore model, a dict of three numpy arrays
 poa has no weights: the state carried across is a round's DP inputs,
 which the JAX package hands its device function as one flat blob;
 `poa_round_from_jax` splits that blob into the port's named tensors.
+kmer-cnt has no weights: `kmer_codes_from_jax` packs the JAX package's
+(hi, lo) int32 code pairs into the port's int64 codes.
 """
 
 from __future__ import annotations
@@ -145,3 +147,15 @@ def poa_round_from_jax(blob: np.ndarray, R: int, W: int,
         o += n
     out["endmask"] = out["endmask"] != 0
     return out
+
+
+def kmer_codes_from_jax(hi: np.ndarray, lo: np.ndarray) -> torch.Tensor:
+    """JAX kmer's `_codes_device` pair (hi, lo int32, hi = HI_SENTINEL
+    = 2**29 where the position is invalid) -> the port's int64 codes
+    hi * 65536 + lo, its SENTINEL (2**62) where invalid.  Exact for
+    k <= 22: at larger k JAX's hi reaches its sentinel (queue 3)."""
+    from genarchbench_tpu_torch.kernels.kmer import SENTINEL
+    hi = np.asarray(hi).astype(np.int64)
+    code = np.where(hi < (1 << 29),
+                    hi * 65536 + np.asarray(lo).astype(np.int64), SENTINEL)
+    return torch.from_numpy(code)

@@ -47,6 +47,14 @@ _REGISTRY = {s.name: s for s in (
     KernelSpec("poa", "genarchbench_tpu_torch.kernels.poa",
                "partial-order alignment consensus (spoa)", "exact",
                "Runtime:"),
+    KernelSpec("kmer-cnt", "genarchbench_tpu_torch.kernels.kmer",
+               "canonical k-mer counting (Flye)", "scalar", "Kernel time:"),
+    KernelSpec("dbg", "genarchbench_tpu_torch.kernels.dbg",
+               "windowed de-Bruijn-graph variant paths (Platypus)", "sorted",
+               "Kernel runtime:"),
+    KernelSpec("pileup", "genarchbench_tpu_torch.kernels.pileup",
+               "pileup base-count matrices (Medaka)", "exact",
+               "Kernel runtime:"),
     KernelSpec("nn-base", "genarchbench_tpu_torch.nn.basecall",
                "QuartzNet-CTC nanopore basecalling (Bonito)", "exact",
                "> samples per second"),

@@ -23,6 +23,7 @@ from genarchbench_tpu_torch import native
 
 BAM_MAGIC = b"BAM\x01"
 BAI_MAGIC = b"BAI\x01"
+CIGAR_OPS = "MIDNSHP=X"
 NT16 = "=ACMGRSVTWYHKDBN"
 NT16_OF = {c: i for i, c in enumerate(NT16)}
 NT16_TABLE = np.full(256, 15, np.uint8)
@@ -30,6 +31,9 @@ for _c, _i in NT16_OF.items():
     NT16_TABLE[ord(_c)] = _i
     NT16_TABLE[ord(_c.lower())] = _i
 REF_CONSUME = {0, 2, 3, 7, 8}      # M D N = X
+QRY_CONSUME = {0, 1, 4, 7, 8}      # M I S = X
+
+FUNMAP, FSECONDARY, FQCFAIL, FDUP, FSUPPL = 0x4, 0x100, 0x200, 0x400, 0x800
 FREVERSE = 0x10
 
 _EOF_BLOCK = bytes.fromhex(

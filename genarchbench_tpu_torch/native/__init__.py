@@ -1,22 +1,26 @@
 """The port's native (C) host helpers, built with the system compiler.
 
 At first use the sources (`wfa_cigars.c`, `chain.c`, `sais.c`,
-`peak_detect.c`, `poa_graph.c`) are compiled with `cc -O3 -shared -fPIC` (`$CC`
-overrides the compiler) into one library,
+`peak_detect.c`, `poa_graph.c`, `minimizer.c`, `pileup_walk.c`) are
+compiled with `cc -O3 -shared -fPIC` (`$CC` overrides the compiler) into
+one library,
 
     build/torch_native/<hash of the sources and flags>/libgenarch_native.so
 
-and loaded with ctypes.  The BGZF decoder (`bgzf_native.c`) links zlib,
-so it is a second library, `libgenarch_bgzf.so`, built the same way: a
-host without zlib's headers fails only the BAM reader, not the other
-helpers.  A build goes into a private directory that is renamed into
-place, so concurrent first uses never load a half-written library, and
-an edited source is rebuilt.  A failed build raises with the compiler's
-stderr: there is no Python fallback on the main path (the plain versions
-the tests hold these to are `kernels/wfa.py::_assemble_cigar`,
+and loaded with ctypes.  The BGZF decoder (`bgzf_native.c`) and the
+FASTA/FASTQ reader (`fasta_reader.c`) link zlib, so they are a second
+library, `libgenarch_zlib.so`, built the same way: a host without
+zlib's headers fails only the readers, not the other helpers.  A build
+goes into a private directory that is renamed into place, so concurrent
+first uses never load a half-written library, and an edited source is
+rebuilt.  A failed build raises with the compiler's stderr: there is no
+Python fallback on the main path (the plain versions the tests hold
+these to are `kernels/wfa.py::_assemble_cigar`,
 `ChainRecord.window_starts`, `kernels/chain.py::gap_corrections_plain`,
 `kernels/fmi.py::suffix_array_plain`, `kernels/abea.py::_peak_detect`,
-`kernels/poa.py::Graph` and `io/bam_io.py::bgzf_read_plain`).
+`kernels/poa.py::Graph`, `io/bam_io.py::bgzf_read_plain`,
+`io/fasta_io.py::_read_fasta_py`, `kernels/kmer.py::_deque_scan_py` and
+`kernels/pileup.py::_events_plain`).
 """
 
 from __future__ import annotations
@@ -35,17 +39,18 @@ import numpy as np
 
 _HERE = pathlib.Path(__file__).resolve().parent
 SRCS = [_HERE / "wfa_cigars.c", _HERE / "chain.c", _HERE / "sais.c",
-        _HERE / "peak_detect.c", _HERE / "poa_graph.c"]
+        _HERE / "peak_detect.c", _HERE / "poa_graph.c", _HERE / "minimizer.c",
+        _HERE / "pileup_walk.c"]
 BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 LIB_NAME = "libgenarch_native.so"
 CC_FLAGS = ["-O3", "-shared", "-fPIC"]
-BGZF_SRCS = [_HERE / "bgzf_native.c"]
-BGZF_LIB_NAME = "libgenarch_bgzf.so"
-BGZF_LIBS = ["-lz"]
+ZLIB_SRCS = [_HERE / "bgzf_native.c", _HERE / "fasta_reader.c"]
+ZLIB_LIB_NAME = "libgenarch_zlib.so"
+ZLIB_LIBS = ["-lz"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_bgzf: Optional[ctypes.CDLL] = None
+_zlib: Optional[ctypes.CDLL] = None
 
 
 def _compiler() -> str:
@@ -89,17 +94,19 @@ def build(srcs=None, name: str = LIB_NAME, libs=()) -> pathlib.Path:
     return out
 
 
-def build_bgzf() -> pathlib.Path:
-    """The BGZF decoder's library, built at first use."""
-    return build(BGZF_SRCS, BGZF_LIB_NAME, BGZF_LIBS)
+def build_zlib() -> pathlib.Path:
+    """The zlib-linked readers' library (BGZF, FASTA), built at first
+    use."""
+    return build(ZLIB_SRCS, ZLIB_LIB_NAME, ZLIB_LIBS)
 
 
-def bgzf_library() -> ctypes.CDLL:
-    """The loaded BGZF decoder, built at first use."""
-    global _bgzf
+def zlib_library() -> ctypes.CDLL:
+    """The loaded zlib-linked readers, built at first use."""
+    global _zlib
     with _lock:
-        if _bgzf is None:
-            lib = ctypes.CDLL(str(build_bgzf()))
+        if _zlib is None:
+            lib = ctypes.CDLL(str(build_zlib()))
+            p64 = ctypes.POINTER(ctypes.c_int64)
             lib.bgzf_decompressed_size.restype = ctypes.c_int64
             lib.bgzf_decompressed_size.argtypes = [ctypes.c_char_p,
                                                    ctypes.c_int64]
@@ -107,8 +114,15 @@ def bgzf_library() -> ctypes.CDLL:
             lib.bgzf_decompress.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64,
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
-            _bgzf = lib
-        return _bgzf
+            lib.fasta_scan.restype = ctypes.c_int64
+            lib.fasta_scan.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                       p64, p64, p64]
+            lib.fasta_load.restype = ctypes.c_int64
+            lib.fasta_load.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_uint8), p64, ctypes.c_char_p]
+            _zlib = lib
+        return _zlib
 
 
 def library() -> ctypes.CDLL:
@@ -164,6 +178,14 @@ def library() -> ctypes.CDLL:
                                           p64, i64, i64, i64, i64]
             lib.poa_consensus.restype = i64
             lib.poa_consensus.argtypes = [vp, pu8, i64]
+            lib.minimizer_scan.restype = i64
+            lib.minimizer_scan.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                           i64, i64, p64]
+            lib.pileup_events.restype = i64
+            lib.pileup_events.argtypes = [
+                i64, p64, p32, p32, p32, p64, p32, p32, p64, pu8, pu8,
+                ctypes.c_int32, i64, i64, ctypes.c_int32, p32, p64, pu8,
+                p32, p32, p32, i64]
             _lib = lib
         return _lib
 
@@ -328,7 +350,7 @@ def peak_detect(t1: np.ndarray, t2: np.ndarray, thr1: float, thr2: float,
 def bgzf_decompress(raw: bytes) -> bytes:
     """Every BGZF block of `raw` inflated and concatenated (C and zlib,
     `bgzf_native.c`); raises ValueError on a framing or inflate error."""
-    lib = bgzf_library()
+    lib = zlib_library()
     n = lib.bgzf_decompressed_size(raw, len(raw))
     if n < 0:
         raise ValueError("bgzf: bad BGZF framing")
@@ -338,3 +360,74 @@ def bgzf_decompress(raw: bytes) -> bytes:
         raise ValueError(f"bgzf: inflated {w} bytes of the {n} the blocks "
                          "announce")
     return buf.tobytes()
+
+
+def fasta_read(path: str, min_len: int):
+    """(names, [uint8 code arrays]) of the records of a FASTA or FASTQ
+    file (gzip or plain) longer than `min_len`, in file order, ACGT (and
+    acgt) encoded 0..3 and every other base 3 (`fasta_reader.c`'s table
+    0), in C and zlib; raises OSError when the file cannot be read."""
+    lib = zlib_library()
+    n, bases, namebytes = (ctypes.c_int64() for _ in range(3))
+    bpath = os.fsencode(path)
+    if lib.fasta_scan(bpath, min_len, ctypes.byref(n), ctypes.byref(bases),
+                      ctypes.byref(namebytes)) != 0:
+        raise OSError(f"fasta_read: cannot read {path}")
+    codes = np.empty(bases.value, np.uint8)
+    offsets = np.zeros(n.value + 1, np.int64)
+    names = ctypes.create_string_buffer(max(namebytes.value, 1))
+    got = lib.fasta_load(bpath, min_len, 0, _ptr(codes, ctypes.c_uint8),
+                         _ptr(offsets, ctypes.c_int64), names)
+    if got != n.value:
+        raise OSError(f"fasta_read: {path} gave {got} records on the second "
+                      f"pass, {n.value} on the first")
+    return (names.raw[:namebytes.value].decode().splitlines(),
+            [codes[offsets[i]:offsets[i + 1]] for i in range(n.value)])
+
+
+def minimizer_scan(h: np.ndarray, window: int) -> np.ndarray:
+    """Positions (int64) of the minimizers of the uint64 hashes `h` over
+    windows of `window` (Flye's yieldMinimizers deque, `minimizer.c`)."""
+    h = np.ascontiguousarray(h, np.uint64)
+    out = np.empty(max(len(h), 1), np.int64)
+    m = library().minimizer_scan(_ptr(h, ctypes.c_uint64), len(h), window,
+                                 _ptr(out, ctypes.c_int64))
+    if m < 0:
+        raise RuntimeError("minimizer_scan: out of memory")
+    return out[:m]
+
+
+def pileup_events(flat, chrom_id: int, start: int, end: int,
+                  filter_flags: int, num2countbase: np.ndarray):
+    """One pileup chunk's walk over the records of `flat` (the tuple of
+    kernels/pileup.py::_flatten_records), in C (`pileup_walk.c`):
+    (cov int64, present bool, ev_p, ev_j, ev_f int32), cov and present
+    over [start, end), the events' positions chunk-relative."""
+    (n, rpos, rflag, rmapq, rrefid, cig_off, cig_op, cig_len,
+     seq_off, nt16, qual) = flat
+    span = end - start
+    cov = np.full(span, -1, np.int64)
+    present = np.zeros(span, np.uint8)
+    n2c = np.ascontiguousarray(num2countbase, np.int32)
+    lib = library()
+
+    def walk(ev_p, ev_j, ev_f, cap):
+        return lib.pileup_events(
+            n, _ptr(rpos, ctypes.c_int64), _ptr(rflag, ctypes.c_int32),
+            _ptr(rmapq, ctypes.c_int32), _ptr(rrefid, ctypes.c_int32),
+            _ptr(cig_off, ctypes.c_int64), _ptr(cig_op, ctypes.c_int32),
+            _ptr(cig_len, ctypes.c_int32), _ptr(seq_off, ctypes.c_int64),
+            _ptr(nt16, ctypes.c_uint8), _ptr(qual, ctypes.c_uint8),
+            chrom_id, start, end, filter_flags, _ptr(n2c, ctypes.c_int32),
+            _ptr(cov, ctypes.c_int64), _ptr(present, ctypes.c_uint8),
+            _ptr(ev_p, ctypes.c_int32), _ptr(ev_j, ctypes.c_int32),
+            _ptr(ev_f, ctypes.c_int32), cap)
+
+    none = np.zeros(1, np.int32)
+    m = walk(none, none, none, 0)
+    cov[:] = -1
+    present[:] = 0
+    ev = [np.empty(max(m, 1), np.int32) for _ in range(3)]
+    if walk(*ev, m) != m:
+        raise RuntimeError("pileup_events: the two passes disagree")
+    return (cov, present.astype(bool), *(e[:m] for e in ev))

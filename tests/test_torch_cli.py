@@ -25,14 +25,18 @@ def test_list(capsys):
                                                 ["bpm", "sorted"],
                                                 ["bsw", "exact"],
                                                 ["chain", "exact"],
+                                                ["dbg", "sorted"],
                                                 ["fast-chain", "exact"],
                                                 ["fmi", "exact"],
+                                                ["kmer-cnt", "scalar"],
                                                 ["nn-base", "exact"],
+                                                ["pileup", "exact"],
                                                 ["poa", "exact"],
                                                 ["wfa", "sorted"]]
     assert [s.name for s in list_kernels()] == ["abea", "bpm", "bsw",
-                                                "chain", "fast-chain", "fmi",
-                                                "nn-base", "poa", "wfa"]
+                                                "chain", "dbg", "fast-chain",
+                                                "fmi", "kmer-cnt", "nn-base",
+                                                "pileup", "poa", "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
     assert get_kernel("wfa").timing_line == "Time.Alignment:"
     assert get_kernel("nn-base").timing_line == "> samples per second"
@@ -41,8 +45,11 @@ def test_list(capsys):
     assert get_kernel("fmi").timing_line == "Computing time:"
     assert get_kernel("abea").timing_line == "Data processing time:"
     assert get_kernel("poa").timing_line == "Runtime:"
+    assert get_kernel("kmer-cnt").timing_line == "Kernel time:"
+    assert get_kernel("dbg").timing_line == "Kernel runtime:"
+    assert get_kernel("pileup").timing_line == "Kernel runtime:"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("kmer-cnt")
+        get_kernel("nn-variant")
 
 
 def test_run_bpm(tmp_path, capsys):

@@ -14,10 +14,12 @@ from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.entry import entry
 from genarchbench_tpu_torch.io.chain_io import ChainRecord
-from genarchbench_tpu_torch.kernels import (abea, bpm, bsw, chain,
-                                            fast_chain, fmi, poa, wfa)
+from genarchbench_tpu_torch.kernels import (abea, bpm, bsw, chain, dbg,
+                                            fast_chain, fmi, kmer, pileup,
+                                            poa, wfa)
 from genarchbench_tpu_torch.nn import basecall
-from tests import torch_abea_inputs, torch_poa_inputs
+from tests import (torch_abea_inputs, torch_dbg_inputs, torch_kmer_inputs,
+                   torch_pileup_inputs, torch_poa_inputs)
 from tests.synth import gen_bsw_input, gen_chain_input, gen_seqpair_dataset
 from tests.torch_fmi_inputs import gen_case
 
@@ -80,7 +82,9 @@ def test_no_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base", "chain",
-                                    "fast-chain", "fmi", "abea", "poa"])
+                                    "fast-chain", "fmi", "abea", "poa",
+                                    "kmer-cnt", "kmer-cnt-minimizers", "dbg",
+                                    "pileup"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -114,6 +118,21 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     elif kernel == "poa":
         inp.write_text(torch_poa_inputs.batches_text(rng, (3,), 30))
         argv = ["-s", str(inp)]
+    elif kernel.startswith("kmer-cnt"):
+        torch_kmer_inputs.gen_fasta(rng, inp, n_reads=2)
+        cfg = tmp_path / "k.cfg"
+        torch_kmer_inputs.write_config(
+            cfg, use_minimizers=int(kernel.endswith("minimizers")))
+        kernel, argv = "kmer-cnt", ["--reads", str(inp), "--config", str(cfg)]
+    elif kernel == "dbg":
+        from genarchbench_tpu_torch.io import bam_io
+        bam, fa = torch_dbg_inputs.make_case(tmp_path, rng, bam_io,
+                                             ref_len=2000, n_reads=10)
+        argv = [str(bam), "tig1:1-2000", str(fa), "1", "1"]
+    elif kernel == "pileup":
+        from genarchbench_tpu_torch.io import bam_io
+        torch_pileup_inputs.make_bam(inp, rng, bam_io, n_reads=10)
+        argv = [str(inp), "tig1:1-2000", "1"]
     else:
         inp.write_text(gen_bsw_input(rng, n_pairs=4, ref_len=40,
                                      query_len=20))
@@ -128,6 +147,7 @@ def test_public_functions_default_to_the_card(monkeypatch):
     from genarchbench_tpu_torch.io.bsw_io import BswPairs
     from genarchbench_tpu_torch.io.seqpair_io import SeqPairs
     seqs = SeqPairs([np.zeros(3, np.uint8)], [np.zeros(2, np.uint8)])
+    reads = kmer.ReadSet(["r"], [np.zeros(40, np.uint8)])
     recs = [ChainRecord(2, 20.0, 5000, 5000, 500, 1,
                         np.array([5, 90], np.uint64),
                         np.array([1, 40], np.uint64))]
@@ -140,6 +160,11 @@ def test_public_functions_default_to_the_card(monkeypatch):
                  lambda: abea.align_batch(["ACGTACGT"], [np.ones((4, 4))],
                                           torch_abea_inputs.synth_model(0)),
                  lambda: poa.ConvexNWEngine(),
+                 lambda: kmer.count_distinct(reads, 11),
+                 lambda: kmer.count_distinct_hostmerge(reads, 11),
+                 lambda: dbg._window_min_mask(["ACGT" * 10],
+                                              [np.full(40, 30, np.uint8)]),
+                 lambda: pileup.calculate_pileup([], 0, 0, 100),
                  lambda: basecall.Basecaller.init(),
                  lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
