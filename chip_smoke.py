@@ -116,7 +116,31 @@ Phases (any failure exits non-zero and prints no result):
      warm run's split (C walk, layout, copies, scatter, copy back),
      launches in the `pileup.scatter` spans, busy share, peak memory, the
      scatter by CUDA events against torch.bincount;
- 15. a `{"paths": [...]}` line for the torch-op paths, a
+ 15. nn-variant (torch ops: cuDNN models, the SSW sweep in CUDA graphs;
+     no hand kernel), under cuDNN and cuBLAS with TF32 off: input A
+     (tests/torch_variant_inputs.py::ont_case: a 500 kb contig, het SNPs
+     about one per 1,000 bases and hom about one per 3,000, 5,000 reads
+     of 3,000 +- 1,000 bases at 30x, half reverse, 2% substitutions, 1%
+     insertions, 1.5% deletions) through `cli run nn-variant` on the
+     whole contig, then `--full-alignment --fa-qual 100` on
+     VARIANT_FA_REGION; input B (`ilmn_case`: 3 kb, 800 reads of 150
+     bases at 40x, two het and two hom SNPs, a 2-base deletion whose
+     reads are written all-M) with `--full-alignment --fa-qual 100
+     --realign`; each VCF held to the port's CPU run by the reference's
+     projection (rows sorted, fields 1-5 and 7-9 equal, QUAL within
+     0.02) and one timing line each, the CPU runs' stage splits beside
+     them.  Weights: seeded Keras-scheme npz files through --model and
+     --fa-model.  Then each run again, warm, under torch.profiler: its
+     split (read, model load, pileup and selection, tensors, Clair3P,
+     phasing, FA model load, realign, FA tensors, Clair3F, write),
+     launches, device time and busy share, each run's bound, and the
+     peak memory; Clair3P at 4,096 tensors and Clair3F at
+     1,024 tensors of 89 rows by CUDA events (warm, mean of 20), device
+     time and launches, the card against the CPU on 8 tensors within
+     1e-4; the SSW forward sweep over input B's realigned reads graphed
+     against the same blocks run eagerly (bit for bit, both timed,
+     launches a column step), align_batch graphed, eager and on the CPU;
+ 16. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -163,6 +187,19 @@ dbg's mask the bytes of its inputs (is-N, int32 qualities, lengths)
 and its bool output against 6 operations a cell; pileup's the bytes of
 its events (two int32 each), the positions' first columns and the
 int32 count matrix written once, against 4 operations an event.
+nn-variant's models are bound by their float32 operations over 67e12
+FLOP/s: two a multiply-add of each LSTM step (4 gates x units x (inputs
++ units) a direction and position), Linear and Conv2d product, from the
+layers' shapes in one forward (`model_flops`).  The SSW sweep's is the
+larger of the bytes of its maxColumn output (int32, B x (Lref + 1)) and
+its sequences (one byte a base) over 3.35 TB/s, and 21 integer
+operations a cell over 1.67e13 op/s, counted from `nn/ssw.py::
+_sweep_step` (the diagonal shift, the profile gather and add, the E
+maximum, the clamp and the validity select: 6; the running-maximum
+term, the scan and its shift, the F offset, clamp, maximum and select:
+7; E's two subtractions, maximum and clamp: 4; the column maximum and
+the three carry selects: 4), over the forward pass's cells, each read
+against the whole window.
 """
 
 from __future__ import annotations
@@ -2169,6 +2206,388 @@ def pileup_phase(card: str) -> dict:
     return row
 
 
+VARIANT_P_BATCH = 4096
+VARIANT_F_BATCH = 1024
+VARIANT_REPS = 20
+VARIANT_MODEL_TOL = 1e-4
+VARIANT_QUAL_TOL = 0.02
+VARIANT_FA_REGION = "ctg:1-100000"
+SSW_OPS_PER_CELL = 21
+SSW_REPS = 3
+
+
+def vcf_check(got: str, want: str, what: str):
+    """The reference's projection of two VCFs (harness/dataset_regress.py:
+    54): the rows sorted, fields 1-5 and 7-9 equal, QUAL within
+    VARIANT_QUAL_TOL.  Returns (rows, max |QUAL diff|, rows whose GT
+    differs)."""
+    def rows(text):
+        return sorted((ln.split("\t") for ln in text.splitlines()
+                       if ln and not ln.startswith("#")),
+                      key=lambda f: (f[0], int(f[1])))
+
+    g, w = rows(got), rows(want)
+    if [f[:5] + f[6:9] for f in g] != [f[:5] + f[6:9] for f in w]:
+        fail(f"nn-variant {what}: the card's VCF rows differ from the CPU "
+             f"run's in fields 1-5, 7-9 ({len(g)} against {len(w)} rows)")
+    dq = max((abs(float(a[5]) - float(b[5])) for a, b in zip(g, w)),
+             default=0.0)
+    if dq > VARIANT_QUAL_TOL:
+        fail(f"nn-variant {what}: QUAL differs by {dq} (limit "
+             f"{VARIANT_QUAL_TOL})")
+    return len(g), dq, sum(a[9:] != b[9:] for a, b in zip(g, w))
+
+
+def variant_cli(argv, name: str, cpu_stats=None):
+    """`cli run nn-variant` on the card, or with cpu_stats (a dict) the
+    runner with GENARCH_DEVICE=cpu and its stage split: (the VCF, the
+    stderr, wall seconds)."""
+    from genarchbench_tpu_torch.nn import variant
+    out, errp = WORK / f"{name}.vcf", WORK / f"{name}.err"
+    argv = [*argv, "--output", str(out)]
+    t0 = time.perf_counter()
+    if cpu_stats is None:
+        run_cli(["run", "nn-variant", *argv], errp)
+    else:
+        with environ({"GENARCH_DEVICE": "cpu"}), open(errp, "w") as err, \
+                contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            if variant.run(argv, stats=cpu_stats) != 0:
+                fail(f"nn-variant {name} returned non-zero")
+    return out.read_text(), errp.read_text(), time.perf_counter() - t0
+
+
+def model_flops(model, x) -> int:
+    """Float32 operations (two a multiply-add) of a model's LSTM, Linear
+    and Conv2d products in one forward on x, from each layer's shapes."""
+    import torch
+    from torch import nn
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, nn.LSTM):
+            B, T_ = inp[0].shape[:2]
+            dirs = 2 if mod.bidirectional else 1
+            total[0] += 2 * B * T_ * dirs * 4 * mod.hidden_size * (
+                mod.input_size + mod.hidden_size)
+        elif isinstance(mod, nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+        else:
+            total[0] += 2 * out.numel() * mod.in_channels * \
+                mod.kernel_size[0] * mod.kernel_size[1] // mod.groups
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (nn.LSTM, nn.Linear, nn.Conv2d))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def spans_profile(fn, reps: int, span: str):
+    """fn() `reps` times under torch.profiler, each call inside
+    record_function(span): (kernel launches, graph launches, device ms)
+    per call and the profile's busy share of its wall time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            with torch.profiler.record_function(span):
+                fn()
+
+    prof, prof_ms = profiled(calls)
+    counts, _, dev_ms = kineto_summary(prof, span)
+    kl, gl = counts.get(span, (0, 0))
+    return kl / reps, gl / reps, dev_ms / reps, dev_ms / prof_ms
+
+
+def variant_model_row(card: str, name: str, caller, cpu_caller, x):
+    """One model's forward at the bench batch: CUDA events, device time,
+    launches, bound; the card's probabilities against the CPU's on the
+    first 8 tensors."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.nn import variant
+
+    xt = torch.from_numpy(x).cuda()
+
+    def forward():
+        with variant._fp32():
+            caller.model(xt)
+
+    with variant._fp32():
+        flops = model_flops(caller.model, xt)
+        ms = event_ms(forward, VARIANT_REPS)
+    launches, graphs, dev_ms, _ = spans_profile(forward, VARIANT_REPS,
+                                                f"variant.{name}")
+    plain = torch.from_numpy(x[:8])
+    t0 = time.perf_counter()
+    with variant._fp32():
+        want = cpu_caller.model(plain).numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = caller.predict(x[:8])
+    err = float(np.abs(got - want).max())
+    if not np.isfinite(got).all() or err > VARIANT_MODEL_TOL:
+        fail(f"nn-variant {name}: card vs CPU probabilities max |diff| "
+             f"{err} (limit {VARIANT_MODEL_TOL})")
+    b_ms = flops / PEAK_FP32_FLOPS * 1e3
+    print(f"nn-variant {name} (TF32 off) at {x.shape}: {ms:.3f} ms by CUDA "
+          f"events (mean of {VARIANT_REPS}), {dev_ms:.3f} ms device, "
+          f"{launches:.0f} kernel launches a forward; {flops / 1e9:.1f} "
+          f"GFLOP, bound {b_ms:.3f} ms (float32 operations); card vs CPU "
+          f"on 8 tensors max |dp| {err:.2e}; CPU 8 tensors {plain_ms:.1f} ms")
+    return dict(name=f"nn-variant {name}", route="torch ops (cuDNN)",
+                shape=list(x.shape), ms=ms, device_ms=dev_ms,
+                launches=launches, graph_launches=graphs,
+                plain_ms_8=plain_ms, max_abs_err=err, flops=flops,
+                bound_ms=b_ms, bound_by="operations", library_ms=ms,
+                tf32=False, card=card)
+
+
+def ssw_sweep_row(card: str, reads, window: str) -> dict:
+    """The realigner's SSW sweeps over input B's pairs (its reads against
+    the re-examined window): graphed blocks held bit for bit to the same
+    blocks run eagerly on the card, both timed; launches a column step;
+    bound."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.nn import ssw
+
+    al = ssw.SswAligner()
+    B = len(reads)
+    rd = [ssw._ENC[np.frombuffer(s.encode(), np.uint8)] for s in reads]
+    rf = ssw._ENC[np.frombuffer(window.encode(), np.uint8)]
+    Lread, Lref = ssw._pow2(max(map(len, rd))), ssw._pow2(len(rf))
+    reads_a = np.full((B, Lread), 4, np.int8)
+    for b, s in enumerate(rd):
+        reads_a[b, :len(s)] = s
+    refs_a = np.full((B, Lref), 4, np.int8)
+    refs_a[:, :len(rf)] = rf
+    dev = [torch.from_numpy(a).cuda() for a in (
+        refs_a, reads_a, np.full(B, len(rf), np.int32),
+        np.array([len(s) for s in rd], np.int32), np.zeros(B, np.int32))]
+    mat = torch.from_numpy(al.mat).cuda()
+
+    def sweep(graphed, counts=None):
+        return ssw._sweep(*dev[:4], mat, dev[4], Lref, Lread, al.gapO,
+                          al.gapE, False, graphed=graphed, counts=counts)
+
+    g_counts, e_counts = {}, {}
+    g, e = sweep(True, g_counts), sweep(False, e_counts)
+    if not all(torch.equal(a, b) for a, b in zip(g, e)):
+        fail("ssw: the graphed forward sweep differs from the same blocks "
+             "run eagerly on the card")
+    g_al = al.align_batch(reads, [window] * B, graphed=True)
+    stats = {}
+    e_al = al.align_batch(reads, [window] * B, graphed=False, stats=stats)
+    if [ssw_fields(a) for a in g_al] != \
+            [ssw_fields(a) for a in e_al]:
+        fail("ssw: graphed align_batch differs from eager blocks")
+    n_cpu = min(64, B)
+    cpu = ssw.SswAligner(device="cpu").align_batch(reads[:n_cpu],
+                                                   [window] * n_cpu)
+    if [ssw_fields(a) for a in cpu] != \
+            [ssw_fields(a) for a in g_al[:len(cpu)]]:
+        fail("ssw: the card's alignments differ from the CPU's")
+    g_ms = event_ms(lambda: sweep(True), SSW_REPS)
+    e_ms = event_ms(lambda: sweep(False), SSW_REPS)
+    steps = g_counts["steps"]
+    kl, gl, dev_ms, _ = spans_profile(lambda: sweep(True), 1, "ssw.graphed")
+    ekl, _, e_dev_ms, _ = spans_profile(lambda: sweep(False), 1, "ssw.eager")
+    best, best_i, end_read = (t.cpu().numpy() for t in g[:3])
+    rdl = np.array([len(s) for s in rd])
+    cells = int(len(rf) * rdl.sum())
+    rev_cells = sum((a.ref_end1 - a.ref_begin1 + 1)
+                    * (a.read_end1 + 1) for a in g_al if a.score1 > 0)
+    nbytes = B * (Lref + 1) * 4 + refs_a.nbytes + reads_a.nbytes
+    b_ms, b_by = bound_ms(nbytes, SSW_OPS_PER_CELL * cells)
+    print(f"ssw sweep ({B} pairs, Lref {Lref}, Lread {Lread}, {steps} "
+          f"steps): graphed forward {g_ms:.2f} ms against eager blocks "
+          f"{e_ms:.2f} ms (CUDA events, mean of {SSW_REPS}), bit for bit "
+          f"equal, "
+          f"align_batch equal graphed, eager and (first 64) CPU; "
+          f"{(kl + gl) / steps:.2f} launches a column step graphed "
+          f"({kl:.0f} kernels + {gl:.0f} graphs a sweep), {ekl / steps:.1f} "
+          f"eager; device {dev_ms:.2f} ms graphed, {e_dev_ms:.2f} ms eager; "
+          f"reverse pass {stats['rev_steps']} of {stats['fwd_steps']} steps; "
+          f"bound {b_ms:.4f} ms ({b_by}) over {cells} forward cells")
+    return dict(name="nn-variant ssw sweep", route="torch ops in CUDA graphs",
+                pairs=B, Lref=Lref, Lread=Lread, steps=steps, ms=g_ms,
+                eager_ms=e_ms, device_ms=dev_ms, eager_device_ms=e_dev_ms,
+                launches_per_step=(kl + gl) / steps,
+                eager_launches_per_step=ekl / steps, fwd_cells=cells,
+                rev_cells=rev_cells, rev_steps=stats["rev_steps"],
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, card=card)
+
+
+def ssw_fields(a) -> tuple:
+    return (a.score1, a.score2, a.ref_begin1, a.ref_end1, a.read_begin1,
+            a.read_end1, a.ref_end2, tuple(a.cigar))
+
+
+def variant_phase(card: str) -> dict:
+    """nn-variant: input A (ONT-like, 500 kb, 30x of 3 kb reads) through
+    `cli run nn-variant` on the whole contig and `--full-alignment
+    --fa-qual 100` on VARIANT_FA_REGION; input B (Illumina-like, 3 kb at
+    40x of 150-base reads) with `--full-alignment --fa-qual 100
+    --realign`; each VCF held to the port's CPU run by the reference's
+    projection.  Then the two models at the bench batches against the
+    CPU, the SSW sweep graphed against eager, warm runs' splits, the busy
+    share, peak memory and the timing lines."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.io import bam_io
+    from genarchbench_tpu_torch.nn import variant
+
+    phase_t0 = time.perf_counter()
+    vi = input_module("torch_variant_inputs")
+    d_a, d_b = WORK / "variant_ont", WORK / "variant_ilmn"
+    d_a.mkdir(exist_ok=True)
+    d_b.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    case_a = vi.ont_case(d_a, bam_io)
+    gen_a_s = time.perf_counter() - t0
+    case_b = vi.ilmn_case(d_b, bam_io)
+    p_npz, f_npz = WORK / "variant_p.npz", WORK / "variant_f.npz"
+    vi.save_npz(p_npz, vi.keras_weights_p(4))
+    vi.save_npz(f_npz, vi.keras_weights_f(2))
+    gen_s = time.perf_counter() - t0
+
+    def argv(case, region, *extra):
+        return ["--bam", str(case["bam"]), "--ref", str(case["ref"]),
+                "--region", region, "--model", str(p_npz), "--fa-model",
+                str(f_npz), *extra]
+
+    fa = ("--full-alignment", "--fa-qual", "100")
+    runs = [("pileup", argv(case_a, case_a["region"])),
+            ("full-alignment", argv(case_a, VARIANT_FA_REGION, *fa)),
+            ("realign", argv(case_b, case_b["region"], *fa, "--realign"))]
+    checks, lines = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, a in runs:
+        got, err, card_s = variant_cli(a, f"variant_{name}")
+        cpu_split = {}
+        want, cpu_err, cpu_s = variant_cli(a, f"variant_{name}_cpu",
+                                           cpu_split)
+        n, dq, gt = vcf_check(got, want, name)
+        if not n or (name != "pileup" and "full-alignment re-called" not in
+                     err):
+            fail(f"nn-variant {name}: {n} VCF rows, no full-alignment stage")
+        tl = [ln for ln in err.splitlines()
+              if ln.startswith("VariantCalling execution time:")]
+        if len(tl) != 1:
+            fail(f"nn-variant {name}: {len(tl)} timing lines")
+        info = [ln for ln in err.splitlines() if ln.startswith("[INFO]")]
+        checks[name] = dict(rows=n, max_qual_diff=dq, gt_diffs=gt,
+                            cpu_split=cpu_split,
+                            card_s=card_s, cpu_s=cpu_s, info=info,
+                            roi_s=float(tl[0].split()[3]),
+                            cpu_roi_s=float(timing_line(
+                                cpu_err, "VariantCalling execution time:")
+                                .split()[3]))
+        lines[name] = tl[0]
+        print(f"nn-variant {name}: {n} VCF rows equal to the CPU run's "
+              f"(fields 1-5, 7-9; max |dQUAL| {dq:.3f}; {gt} GT differ); "
+              f"{tl[0]} (CPU {checks[name]['cpu_roi_s']:.2f} s: " + ", ".join(
+                  f"{k[:-2]} {v * 1e3:.1f}" for k, v in cpu_split.items()
+                  if k.endswith("_s") and k != "roi_s") + " ms); "
+              + "; ".join(info))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # each run once more, warm, under torch.profiler: its split (a sync
+    # at each stage), launches, device time and busy share
+    splits, profs = {}, {}
+    for name, a in runs:
+        stats = {}
+
+        def warm():
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()), \
+                    torch.profiler.record_function("variant.run"):
+                variant.run(a + ["--output", str(WORK / "variant_warm.vcf")],
+                            stats=stats)
+
+        prof, prof_ms = profiled(warm)
+        calls, events, dev_ms = kineto_summary(prof, "variant.run")
+        ssw_calls = kineto_summary(prof, "ssw.")[0].get("ssw.sweep", (0, 0))
+        del prof
+        splits[name] = stats
+        profs[name] = dict(profiled_ms=prof_ms, device_ms=dev_ms,
+                           device_events=events,
+                           launches=calls["variant.run"],
+                           ssw_launches=ssw_calls,
+                           busy_share=dev_ms / prof_ms)
+        print(f"nn-variant {name} warm split (profiled): " + ", ".join(
+            f"{k[:-2]} {v * 1e3:.1f}" for k, v in stats.items()
+            if k.endswith("_s")) + f" ms; {stats['candidates']} candidates, "
+            f"{stats.get('fa_sites', 0)} FA sites of rows "
+            f"{sorted(set(stats.get('fa_rows', [])))}; launches "
+            f"{calls['variant.run']} (kernels, graphs), ssw {ssw_calls}; "
+            f"device {dev_ms:.2f} ms ({events} events), busy "
+            f"{dev_ms / prof_ms:.1%} of {prof_ms:.1f} ms")
+
+    # the models at the bench batches, card against CPU
+    rng = np.random.default_rng(117)
+    pc = variant.PileupCaller(variant.convert_keras_weights(
+        dict(np.load(p_npz))))
+    pc_cpu = variant.PileupCaller(variant.convert_keras_weights(
+        dict(np.load(p_npz))), device="cpu")
+    xp = rng.integers(-30, 31, (VARIANT_P_BATCH, 33, 18)).astype(np.float32)
+    fc = variant.FullAlignmentCaller(variant.convert_keras_weights_full(
+        dict(np.load(f_npz))))
+    fc_cpu = variant.FullAlignmentCaller(variant.convert_keras_weights_full(
+        dict(np.load(f_npz))), device="cpu")
+    xf = rng.integers(-100, 101, (VARIANT_F_BATCH, 89, 33, 8)) \
+        .astype(np.float32)
+    model_rows = [variant_model_row(card, "clair3p", pc, pc_cpu, xp),
+                  variant_model_row(card, "clair3f", fc, fc_cpu, xf)]
+
+    # the SSW sweep on input B's realign pairs
+    recs = bam_io.read_bam(str(case_b["bam"]))[1]
+    lo, hi = splits["realign"]["realign_window"]
+    reads = [r.seq for r in recs if not (r.flag & variant.CLAIR3_FILTER_FLAGS)
+             and r.pos < hi and r.pos + r.ref_span() > lo]
+    if len(reads) != splits["realign"]["pairs"]:
+        fail(f"ssw: {len(reads)} reads over the realign window, the run "
+             f"aligned {splits['realign']['pairs']}")
+    sweep_row = ssw_sweep_row(card, reads, case_b["ref_seq"][lo:hi])
+
+    # each run's bound: its models' float32 operations over 67e12 FLOP/s
+    # plus its sweep's integer operations over 1.67e13 op/s
+    p_flops = model_rows[0]["flops"] // VARIANT_P_BATCH
+    with variant._fp32():
+        f_flops = {r: model_flops(fc.model, torch.zeros(
+            (1, r if fc.model.fits(r) else fc.model.depth, 33, 8),
+            device="cuda")) for r in set(
+                sum((st.get("fa_rows", []) for st in splits.values()), []))}
+    for name, st in splits.items():
+        flops = p_flops * st["candidates"] + sum(
+            f_flops[r] for r in st.get("fa_rows", []))
+        ops = SSW_OPS_PER_CELL * sweep_row["fwd_cells"] \
+            if name == "realign" else 0
+        profs[name].update(
+            flops=flops, int_ops=ops, bound_ms=(flops / PEAK_FP32_FLOPS
+                                                + ops / PEAK_INT32_OPS_PER_S)
+            * 1e3)
+    phase_s = time.perf_counter() - phase_t0
+    row = dict(name="nn-variant", route="torch ops (cuDNN models, graphed "
+               "SSW sweep)", checks=checks, timing_lines=lines,
+               splits=splits, profiles=profs, models=model_rows,
+               ssw=sweep_row, peak_gb=peak_gb, input_a_s=gen_a_s,
+               inputs_s=gen_s, phase_s=phase_s, card=card)
+    print("nn-variant CLI bounds: " + "; ".join(
+        f"{k} {v['bound_ms']:.3f} ms ({v['flops'] / 1e9:.2f} GFLOP, "
+        f"{v['int_ops'] / 1e9:.2f} G int ops)" for k, v in profs.items())
+        + f"; peak {peak_gb:.3f} GB; input A written in {gen_a_s:.1f} s; "
+        f"phase {phase_s:.1f} s")
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2210,7 +2629,7 @@ def main() -> int:
     row, records = chain_phase(card, bench)
     paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card),
               abea_phase(card), poa_phase(card), kmer_phase(card),
-              dbg_phase(card), pileup_phase(card)]
+              dbg_phase(card), pileup_phase(card), variant_phase(card)]
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,10 @@ which the JAX package hands its device function as one flat blob;
 `poa_round_from_jax` splits that blob into the port's named tensors.
 kmer-cnt has no weights: `kmer_codes_from_jax` packs the JAX package's
 (hi, lo) int32 code pairs into the port's int64 codes.
+nn-variant has two models: `variant_state_from_jax` turns the JAX
+Clair3P's flax variables into the port's `Clair3P` state dict, and
+`variant_full_state_from_jax` the JAX Clair3F's params and batch_stats
+into `Clair3F`'s.
 """
 
 from __future__ import annotations
@@ -159,3 +163,27 @@ def kmer_codes_from_jax(hi: np.ndarray, lo: np.ndarray) -> torch.Tensor:
     code = np.where(hi < (1 << 29),
                     hi * 65536 + np.asarray(lo).astype(np.int64), SENTINEL)
     return torch.from_numpy(code)
+
+
+def variant_state_from_jax(variables: Dict[str, Any],
+                           add_indel_length: bool = True
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX `PileupCaller`'s variables ({"params": {"LSTM1": {"fwd":
+    {"kernel", "recurrent", "bias"}, "bwd": ...}, "L4": ...}}, arrays)
+    -> the port's `Clair3P` state dict (LSTM kernels transposed into
+    weight_ih / weight_hh, the bias into bias_ih, bias_hh zero; Dense
+    kernels transposed)."""
+    from genarchbench_tpu_torch.nn.variant import pileup_state_from_tree
+    return pileup_state_from_tree(variables["params"], add_indel_length)
+
+
+def variant_full_state_from_jax(variables: Dict[str, Any],
+                                add_indel_length: bool = True
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX `FullAlignmentCaller`'s variables ({"params": ...,
+    "batch_stats": ...}, arrays) -> the port's `Clair3F` state dict (conv
+    kernels (kh, kw, cin, cout) -> (cout, cin, kh, kw), BatchNorm scale,
+    bias, mean and var -> weight, bias, running_mean and running_var)."""
+    from genarchbench_tpu_torch.nn.variant import full_state_from_tree
+    return full_state_from_tree(variables["params"], variables["batch_stats"],
+                                add_indel_length)

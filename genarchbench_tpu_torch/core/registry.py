@@ -58,6 +58,9 @@ _REGISTRY = {s.name: s for s in (
     KernelSpec("nn-base", "genarchbench_tpu_torch.nn.basecall",
                "QuartzNet-CTC nanopore basecalling (Bonito)", "exact",
                "> samples per second"),
+    KernelSpec("nn-variant", "genarchbench_tpu_torch.nn.variant",
+               "Clair3 pileup + full-alignment variant calling", "sorted",
+               "VariantCalling execution time:"),
 )}
 
 

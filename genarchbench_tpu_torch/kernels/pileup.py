@@ -115,11 +115,12 @@ _FLAT_CACHE: Dict[int, tuple] = {}
 def _flatten_records(records: List[BamRecord]):
     """Flat per-record arrays for the C CIGAR walker (built once per
     record list: the CLI calls calculate_pileup per 100 kb chunk over
-    the same records)."""
+    the same records).  The cache holds the list it was built from, so
+    a later list cannot take its id."""
     key = id(records)
     hit = _FLAT_CACHE.get(key)
-    if hit is not None:
-        return hit
+    if hit is not None and hit[0] is records:
+        return hit[1]
     n = len(records)
     rpos = np.array([r.pos for r in records], np.int64)
     rflag = np.array([r.flag for r in records], np.int32)
@@ -148,7 +149,7 @@ def _flatten_records(records: List[BamRecord]):
     flat = (n, rpos, rflag, rmapq, rrefid, cig_off, cig_op, cig_len,
             seq_off, nt16, qual)
     _FLAT_CACHE.clear()                     # hold one list at a time
-    _FLAT_CACHE[key] = flat
+    _FLAT_CACHE[key] = (records, flat)
     return flat
 
 

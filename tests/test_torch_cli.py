@@ -30,13 +30,15 @@ def test_list(capsys):
                                                 ["fmi", "exact"],
                                                 ["kmer-cnt", "scalar"],
                                                 ["nn-base", "exact"],
+                                                ["nn-variant", "sorted"],
                                                 ["pileup", "exact"],
                                                 ["poa", "exact"],
                                                 ["wfa", "sorted"]]
     assert [s.name for s in list_kernels()] == ["abea", "bpm", "bsw",
                                                 "chain", "dbg", "fast-chain",
                                                 "fmi", "kmer-cnt", "nn-base",
-                                                "pileup", "poa", "wfa"]
+                                                "nn-variant", "pileup", "poa",
+                                                "wfa"]
     assert get_kernel("bsw").timing_line == "Overall SW cycles"
     assert get_kernel("wfa").timing_line == "Time.Alignment:"
     assert get_kernel("nn-base").timing_line == "> samples per second"
@@ -48,8 +50,11 @@ def test_list(capsys):
     assert get_kernel("kmer-cnt").timing_line == "Kernel time:"
     assert get_kernel("dbg").timing_line == "Kernel runtime:"
     assert get_kernel("pileup").timing_line == "Kernel runtime:"
+    assert get_kernel("nn-variant").timing_line == \
+        "VariantCalling execution time:"
+    assert get_kernel("nn-variant").check_rule == "sorted"
     with pytest.raises(KeyError, match="unknown kernel"):
-        get_kernel("nn-variant")
+        get_kernel("nn-varient")
 
 
 def test_run_bpm(tmp_path, capsys):

@@ -17,9 +17,10 @@ from genarchbench_tpu_torch.io.chain_io import ChainRecord
 from genarchbench_tpu_torch.kernels import (abea, bpm, bsw, chain, dbg,
                                             fast_chain, fmi, kmer, pileup,
                                             poa, wfa)
-from genarchbench_tpu_torch.nn import basecall
+from genarchbench_tpu_torch.nn import basecall, ssw, variant
 from tests import (torch_abea_inputs, torch_dbg_inputs, torch_kmer_inputs,
-                   torch_pileup_inputs, torch_poa_inputs)
+                   torch_pileup_inputs, torch_poa_inputs,
+                   torch_variant_inputs)
 from tests.synth import gen_bsw_input, gen_chain_input, gen_seqpair_dataset
 from tests.torch_fmi_inputs import gen_case
 
@@ -44,6 +45,8 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.io.bam_io, "
             "genarchbench_tpu_torch.io.fast5_io, "
             "genarchbench_tpu_torch.io.chain_io, "
+            "genarchbench_tpu_torch.nn.variant, "
+            "genarchbench_tpu_torch.nn.ssw, "
             "genarchbench_tpu_torch.sharding.batching; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'genarchbench_tpu' "
@@ -84,7 +87,7 @@ def test_no_card_raises(monkeypatch):
 @pytest.mark.parametrize("kernel", ["bpm", "bsw", "wfa", "nn-base", "chain",
                                     "fast-chain", "fmi", "abea", "poa",
                                     "kmer-cnt", "kmer-cnt-minimizers", "dbg",
-                                    "pileup"])
+                                    "pileup", "nn-variant"])
 def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
     """With GENARCH_DEVICE unset, the CLIs ask for the card and do not
     fall back to the CPU."""
@@ -129,6 +132,15 @@ def test_run_without_device_raises(monkeypatch, tmp_path, kernel):
         bam, fa = torch_dbg_inputs.make_case(tmp_path, rng, bam_io,
                                              ref_len=2000, n_reads=10)
         argv = [str(bam), "tig1:1-2000", str(fa), "1", "1"]
+    elif kernel == "nn-variant":
+        from genarchbench_tpu_torch.io import bam_io
+        rng_ref = torch_variant_inputs.random_ref(rng, 400)
+        torch_variant_inputs.write_fasta(tmp_path / "ref.fa", "c1", rng_ref)
+        bam_io.write_bam(str(inp), [("c1", 400)],
+                         torch_variant_inputs.two_hap_records(
+                             rng, rng_ref, {200: "A"}, bam_io))
+        argv = ["--bam", str(inp), "--ref", str(tmp_path / "ref.fa"),
+                "--region", "c1:1-400"]
     elif kernel == "pileup":
         from genarchbench_tpu_torch.io import bam_io
         torch_pileup_inputs.make_bam(inp, rng, bam_io, n_reads=10)
@@ -166,6 +178,10 @@ def test_public_functions_default_to_the_card(monkeypatch):
                                               [np.full(40, 30, np.uint8)]),
                  lambda: pileup.calculate_pileup([], 0, 0, 100),
                  lambda: basecall.Basecaller.init(),
+                 lambda: variant.PileupCaller.init(),
+                 lambda: variant.FullAlignmentCaller.init(),
+                 lambda: ssw.SswAligner(),
+                 lambda: variant.realign_reads([], "ACGT", 0, 4, 0),
                  lambda: entry(),
                  lambda: bsw.bsw_batch(BswPairs(
                      np.array([5], np.int32), [np.zeros(4, np.int32)],

@@ -144,6 +144,25 @@ def test_cli_chunks_against_jax(tmp_path, shape):
     assert ours.count("pileup is length") == 3
 
 
+def test_flatten_cache_follows_the_list(case):
+    """A record list freed after its flattening leaves its id free for the
+    next list (CPython hands a freed list's memory to the next one): the
+    cache must give that list its own arrays, as when one process runs
+    over one BAM, then another."""
+    recs, _ = case
+    first = recs[:30]
+    T._flatten_records(first)
+    del first
+    second = recs[30:]
+    flat = T._flatten_records(second)
+    assert flat[0] == len(second)
+    assert np.array_equal(flat[1], [r.pos for r in second])
+    got = native.pileup_events(flat, 0, 0, 2000, T.FILTER_FLAGS,
+                               T.NUM2COUNTBASE)
+    want = T._events_plain(second, 0, 0, 2000)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
 def test_empty_chunk(case):
     recs, jrecs = case
     got = T.calculate_pileup(recs, 0, 5000, 6000, device_out=True,
