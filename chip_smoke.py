@@ -140,7 +140,25 @@ Phases (any failure exits non-zero and prints no result):
      1e-4; the SSW forward sweep over input B's realigned reads graphed
      against the same blocks run eagerly (bit for bit, both timed,
      launches a column step), align_batch graphed, eager and on the CPU;
- 16. a `{"paths": [...]}` line for the torch-op paths, a
+ 16. multi-device runs and the regression harness (`mesh_phase`, after
+     every other phase, whose inputs and goldens it reads): `cli regress
+     bpm` and `regress bsw` on the card at phases 2-3's inputs, one job
+     each (`--devices 1`), each job's output held to the file those
+     phases held to the plain versions, its hand-kernel launches read
+     from its stage directory, its wall time against its timing line;
+     bpm_batch and bsw_batch on a mesh of two shards of the one card
+     (`Mesh((cuda:0, cuda:0))`: the machine has one card, and NCCL
+     refuses two ranks on one), exactly equal to the one-device run
+     with twice its launches, the kernels on each shard held to the
+     plain version and timed beside the one-shard call (rows
+     `bpm-mesh2`, `bsw-mesh2`); wfa, chain, fast-chain, abea and fmi on
+     small inputs and fmi with sharded tables on 16,384 bench reads, each
+     on that mesh and equal to its one-device run; the sharded k-mer
+     count at the kmer-cnt bench input equal to `count_distinct`;
+     `regress small` without a dataset root, every kernel a SKIP (the
+     CPU determinism sweep, `regress --platform cpu --devices 1,2,8`,
+     runs in tests/test_torch_cli.py, not here: its jobs are CPU work);
+ 17. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -406,6 +424,7 @@ def bpm_phase(card: str):
         torch.cuda.synchronize()
         max_err = max(max_err, int((k.long() - p.long()).abs().max()))
         plain[idx] = p.cpu().numpy()
+    np.save(WORK / "bpm_plain.npy", plain)      # the mesh phase's reference
     want = [f"[{i}] score={-s}" for i, s in enumerate(plain)]
     res = check_sorted(outp.read_text().splitlines(), want)
     if max_err != 0 or not res:
@@ -475,6 +494,8 @@ def bsw_phase(card: str, name: str, gen_args: dict, cli_extra: list,
     torch.cuda.synchronize()
     max_err = max(int((a.long() - b.long()).abs().max())
                   for a, b in zip(k, p))
+    # the six outputs, the mesh phase's reference
+    np.save(WORK / f"{name}_plain.npy", torch.stack(p).cpu().numpy())
     valid = src >= 0
     plain = np.zeros(len(pairs), np.int64)
     plain[src[valid]] = p[0].cpu().numpy()[valid]
@@ -2588,6 +2609,316 @@ def variant_phase(card: str) -> dict:
     return row
 
 
+MESH_FMI_READS = 16384
+MESH_REPS = 3
+
+
+def regress_report(fn, jobs: bool = True) -> str:
+    """Run a `regress` (fn) with its jobs under WORK/jobs; its stdout,
+    which must end in `Failed jobs: 0/N` where jobs ran."""
+    out = io.StringIO()
+    with environ({"GENARCH_JOB_DIR": str(WORK / "jobs")}), \
+            contextlib.redirect_stdout(out):
+        rc = fn()
+    text = out.getvalue()
+    if rc != 0 or jobs and not re.search(r"^Failed jobs: 0/\d+$", text,
+                                         re.M):
+        fail(f"regress returned {rc}:\n{text[-3000:]}")
+    return text
+
+
+def wall_s(fn, reps: int = MESH_REPS) -> float:
+    """Median host seconds of fn() after a warm call, each call ended by
+    a sync of the card."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def mesh_kernel_row(card, name, base, launches, shard_args, kernel, want,
+                    plain_ms, nbytes, ops, one_shard_args):
+    """A kernel row for the two-shard run: the kernel on every shard held
+    to the plain version's outputs for the same items (`want`, from
+    phases 2-3, with their plain_ms), the wrapper on each shard's inputs
+    (CUDA events, warm, mean of KERNEL_REPS) and on the one-device run's
+    inputs beside it."""
+    import torch
+    max_err = 0
+    for args, w in zip(shard_args, want):
+        k = kernel(args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, max(int((a.long().cpu() - b).abs().max())
+                                   for a, b in zip(k, w)))
+    if max_err:
+        fail(f"{name}: kernel vs plain max |diff| {max_err} on a shard")
+    ms = event_ms(lambda: [kernel(a) for a in shard_args], KERNEL_REPS)
+    one_ms = event_ms(lambda: [kernel(a) for a in one_shard_args],
+                      KERNEL_REPS)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    return dict(base, name=name, launches=launches, max_abs_err=max_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, one_shard_ms=one_ms, card=card)
+
+
+def mesh_phase(card: str, bpm_row: dict, bsw_row: dict):
+    """The slice's own path on the card, after every other phase (it
+    reads their inputs and goldens): (a) `cli regress bpm` and `regress
+    bsw` at phases 2-3's inputs, --devices 1, each job's output held to
+    the file those phases held to the plain versions; (b) bpm_batch and
+    bsw_batch on a mesh of two shards of the one card, exactly equal to
+    the one-device run, each shard launching the hand kernel, held to
+    the plain outputs phases 2-3 saved (their rows give the plain
+    versions' times on the same items); (c) wfa,
+    chain, fast-chain, abea and fmi on small inputs, and fmi with sharded
+    tables on its bench input's first MESH_FMI_READS reads, each on that
+    mesh and exactly equal to its one-device run; (d) the sharded k-mer
+    count at the kmer-cnt bench input against count_distinct; (e)
+    `regress small` without a dataset root, every kernel a SKIP.
+    Returns (its path row, the kernel rows of (b))."""
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch import cli
+    from genarchbench_tpu_torch.io import chain_io
+    from genarchbench_tpu_torch.io.bsw_io import read_bsw_pairs
+    from genarchbench_tpu_torch.io.fasta_io import read_fasta
+    from genarchbench_tpu_torch.io.seqpair_io import read_seqpairs
+    from genarchbench_tpu_torch.kernels import (abea, bpm, bpm_cuda, bsw,
+                                                bsw_cuda, chain, fast_chain,
+                                                fmi, kmer, wfa)
+    from genarchbench_tpu_torch.sharding.mesh import (Mesh, shard_args,
+                                                      shard_index,
+                                                      shard_items)
+
+    phase_t0 = time.perf_counter()
+    sy = synth()
+    card0 = torch.device("cuda", 0)
+    mesh = Mesh((card0, card0))
+    row = dict(name="mesh", route="torch ops and hand kernels", card=card)
+
+    # (a) the regress harness on the card, one job each
+    bpm_in, bsw_in = WORK / "bpm_pairs.txt", WORK / "bsw_pairs.txt"
+    jobs = {}
+    t0 = time.perf_counter()
+    text = regress_report(lambda: cli.main(
+        ["regress", "bpm", "--cmd", f"-i {bpm_in} -o {{out}}/out.txt",
+         "--golden", str(WORK / "bpm.out"), "--source", "file:out.txt",
+         "--devices", "1"]))
+    jobs["bpm"] = (text, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    text = regress_report(lambda: cli.main(
+        ["regress", "bsw", "--cmd", f"-pairs {bsw_in}",
+         "--golden", str(WORK / "bsw.err"), "--source", "stderr",
+         "--devices", "1"]))
+    jobs["bsw"] = (text, time.perf_counter() - t0)
+    for name, (text, call_s) in jobs.items():
+        job = timing_line(text, f"[{name} devices=1]").strip()
+        m = re.search(rf"launches .*{name}=(\d+)", job)
+        if not m or int(m.group(1)) < 1:
+            fail(f"regress {name}: the job launched no {name} kernel: {job}")
+        scaling = timing_line(text, f"[{name}] scaling:").strip()
+        print(f"regress {name}: {job} | {scaling} | call {call_s:.2f} s")
+        job_wall = float(re.search(r"wall=([0-9.]+)s", job).group(1))
+        nums = re.findall(r"([0-9.]+)s", scaling)
+        row[f"regress_{name}"] = dict(
+            job_wall_s=job_wall, timing_s=float(nums[0]) if nums else None,
+            launches=int(m.group(1)), call_s=call_s, line=job)
+
+    parts = {"regress_gpu_s": time.perf_counter() - phase_t0}
+    t_part = time.perf_counter()
+
+    # (b) the hand kernels' batch functions on two shards of the card
+    rows = []
+    pairs = read_seqpairs(str(bpm_in), swap_longer_first=True)
+    reset_launch_counts()
+    single = bpm.bpm_batch(pairs, device="cuda")
+    n1 = bpm_cuda.LAUNCHES
+    reset_launch_counts()
+    sharded = bpm.bpm_batch(pairs, mesh=mesh)
+    n2 = bpm_cuda.LAUNCHES
+    if not np.array_equal(single, sharded) or n2 != 2 * n1:
+        fail(f"bpm mesh: {int((single != sharded).sum())} pairs differ; "
+             f"{n2} launches on two shards, {n1} on one")
+    groups = bpm.word_groups(pairs)
+    bpm_parts = [(W, part) for W, idxs in groups.items()
+                 for part in shard_items(idxs, mesh)]
+    shard_in = [[torch.from_numpy(a).cuda()
+                 for a in bpm.group_arrays(pairs, part, W)]
+                for W, part in bpm_parts]
+    plain = torch.from_numpy(np.load(WORK / "bpm_plain.npy"))
+    want = [(plain[torch.from_numpy(part)],) for _, part in bpm_parts]
+    one_in = [[torch.from_numpy(a).cuda()
+               for a in bpm.group_arrays(pairs, idxs, W)]
+              for W, idxs in groups.items()]
+    word_steps = sum(a[0].shape[0] * int(a[3].long().sum()) for a in shard_in)
+    rows.append(mesh_kernel_row(
+        card, "bpm-mesh2", dict(route="cuda",
+                                source="genarchbench_tpu_torch/csrc/bpm.cu",
+                                replaces="genarchbench_tpu/kernels/"
+                                         "bpm_pallas.py:98"),
+        n2, shard_in, lambda a: (bpm_cuda.bpm_distance(*a),), want,
+        bpm_row["plain_ms"],
+        sum(tensor_bytes(a) + 4 * a[0].shape[2] for a in shard_in),
+        BPM_OPS_PER_WORD_STEP * word_steps, one_in))
+    rows[-1].update(shards=len(mesh.devices), batch_one_s=wall_s(lambda: bpm.bpm_batch(
+        pairs, device="cuda")), batch_two_s=wall_s(
+        lambda: bpm.bpm_batch(pairs, mesh=mesh)), groups=len(groups))
+
+    # the CLI's grouping (-b 0: one batch), as phase 3's
+    bpairs = read_bsw_pairs(str(bsw_in))
+    reset_launch_counts()
+    single = bsw.bsw_batch(bpairs, batch_size=0, device="cuda")
+    n1 = bsw_cuda.LAUNCHES
+    reset_launch_counts()
+    sharded = bsw.bsw_batch(bpairs, batch_size=0, mesh=mesh)
+    n2 = bsw_cuda.LAUNCHES
+    if not np.array_equal(single, sharded) or n2 != 2 * n1:
+        fail(f"bsw mesh: {int((single != sharded).sum())} pairs differ; "
+             f"{n2} launches on two shards, {n1} on one")
+    sc = dict(match=1, mismatch=-4, ambig=-1, o_del=6, e_del=1, o_ins=6,
+              e_ins=1, zdrop=100, w=100)
+    _, arrays = bsw.kernel_inputs(bpairs, 0, bsw.LANES, match=1,
+                                  end_bonus=5, o_ins=6, e_ins=1, o_del=6,
+                                  e_del=1, w=100)
+    shard_in = [list(a) for a in zip(*shard_args(mesh, *arrays))]
+    one_in = [[torch.from_numpy(a).cuda() for a in arrays]]
+    plain = torch.from_numpy(np.load(WORK / "bsw_plain.npy"))
+    want = [tuple(plain[:, torch.from_numpy(ix)])
+            for ix in shard_index(len(arrays[0]), mesh)]
+    band_cells = bsw_row["band_cells"]
+    rows.append(mesh_kernel_row(
+        card, "bsw-mesh2", dict(route="cuda",
+                                source="genarchbench_tpu_torch/csrc/bsw.cu",
+                                replaces="genarchbench_tpu/kernels/"
+                                         "bsw_pallas.py:98"),
+        n2, shard_in, lambda a: bsw_cuda.bsw_scores(*a, **sc), want,
+        bsw_row["plain_ms"],
+        sum(tensor_bytes(a) + 6 * a[2].numel() * 4 for a in shard_in),
+        # the repeated padding group, if any, evaluates its cells again
+        BSW_OPS_PER_CELL * band_cells, one_in))
+    rows[-1].update(shards=len(mesh.devices), batch_one_s=wall_s(
+        lambda: bsw.bsw_batch(bpairs, batch_size=0, device="cuda")),
+        batch_two_s=wall_s(lambda: bsw.bsw_batch(bpairs, batch_size=0,
+                                                  mesh=mesh)))
+    for r in rows:
+        print(f"{r['name']}: {r['launches']} launches, kernels "
+              f"{r['ms']:.4f} ms on two shards, {r['one_shard_ms']:.4f} ms "
+              f"on one; batch function {r['batch_two_s'] * 1e3:.1f} ms on "
+              f"two shards, {r['batch_one_s'] * 1e3:.1f} ms on one")
+
+    parts["hand_kernels_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (c) the torch-op paths on two shards of the card
+    def same(name, a, b):
+        if a != b:
+            fail(f"{name}: the two-shard run differs from the one-device "
+                 f"run")
+
+    def lists(res):
+        return [[np.asarray(x).tolist() for x in r[:2]] for r in res]
+
+    split = {}
+    wf = WORK / "mesh_wfa.txt"
+    wf.write_text(sy.gen_seqpair_dataset(np.random.default_rng(14),
+                                         n_pairs=256, length=100,
+                                         error_rate=0.08))
+    wpairs = read_seqpairs(str(wf), swap_longer_first=False)
+    same("wfa", wfa.wfa_batch(wpairs, device="cuda"),
+         wfa.wfa_batch(wpairs, mesh=mesh))
+    text = sy.gen_chain_input(np.random.default_rng(11), n_records=64,
+                              max_anchors=200)
+    recs = list(chain_io.read_records(io.StringIO(text)))
+    same("chain", lists(chain.chain_batch(recs, device="cuda")),
+         lists(chain.chain_batch(recs, mesh=mesh)))
+    same("fast-chain", lists(fast_chain.fast_chain_batch(recs, device="cuda")),
+         lists(fast_chain.fast_chain_batch(recs, mesh=mesh)))
+    ai = input_module("torch_abea_inputs")
+    model = ai.synth_model(0)
+    rng = np.random.default_rng(16)
+    seqs = [ai.random_seq(rng, int(rng.integers(200, 600)))
+            for _ in range(16)]
+    ets = [abea.get_events(ai.synth_signal(rng, model, s)) for s in seqs]
+    got = abea.align_batch(seqs, ets, model, mesh=mesh)
+    same("abea", abea.align_batch(seqs, ets, model, device="cuda"), got)
+    if not all(got):
+        fail("abea mesh: a read failed QC on the small input")
+    fi = input_module("torch_fmi_inputs")
+    (WORK / "mesh_fmi").mkdir(exist_ok=True)
+    small_fa, small_fq = fi.gen_case(WORK / "mesh_fmi",
+                                     np.random.default_rng(15),
+                                     ref_len=20000, n_reads=256)
+    sidx = fmi.load_index(str(small_fa))
+    sreads = fmi.read_queries(str(small_fq))
+
+    def fmi_run(index, reads, **kw):
+        res = fmi.search_reads(fmi.FMISearch(index, **kw), reads, 512, 19)
+        return [a.tolist() for a in res[0]]
+    same("fmi", fmi_run(sidx, sreads, device="cuda"),
+         fmi_run(sidx, sreads, mesh=mesh))
+    bench_dir = WORK / "fmi_bench"
+    fa, fq = bench_dir / "ref.fa", bench_dir / "reads.fq"
+    if not fq.exists():
+        bench_dir.mkdir(exist_ok=True)
+        fa, fq = fi.bench_input(bench_dir)
+    bidx = fmi.load_index(str(fa))
+    breads = fmi.read_queries(str(fq))[:MESH_FMI_READS]
+    t0 = time.perf_counter()
+    one = fmi_run(bidx, breads, device="cuda")
+    split["fmi_one_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = fmi_run(bidx, breads, mesh=mesh, shard_tables=True)
+    split["fmi_sharded_tables_s"] = time.perf_counter() - t0
+    same("fmi sharded tables", one, two)
+    print(f"mesh torch-op paths: wfa, chain, fast-chain, abea, fmi equal on "
+          f"two shards; fmi sharded tables on {len(breads)} bench reads "
+          f"({len(one[0])} SMEMs): {split['fmi_sharded_tables_s']:.2f} s, "
+          f"one device {split['fmi_one_s']:.2f} s")
+
+    parts["torch_op_paths_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (d) the sharded k-mer count
+    kf = WORK / "kmer_bench.fa"
+    if not kf.exists():
+        input_module("torch_kmer_inputs").bench_fasta(kf)
+    reads = read_fasta(str(kf))
+    want = kmer.count_distinct(reads, KMER_K)
+    got = kmer.count_distinct_sharded(reads, KMER_K, mesh=mesh)
+    if got != want:
+        fail(f"kmer sharded count {got} != count_distinct {want}")
+    split["kmer_one_s"] = wall_s(lambda: kmer.count_distinct(reads, KMER_K))
+    split["kmer_sharded_s"] = wall_s(
+        lambda: kmer.count_distinct_sharded(reads, KMER_K, mesh=mesh))
+    print(f"kmer sharded count on two shards: {got} k-mers, equal to "
+          f"count_distinct; {split['kmer_sharded_s'] * 1e3:.2f} ms, one "
+          f"device {split['kmer_one_s'] * 1e3:.2f} ms (medians of "
+          f"{MESH_REPS})")
+
+    parts["kmer_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (e) regress small without a dataset
+    with environ({"GENARCH_BENCH_INPUTS_ROOT": ""}):
+        text = regress_report(lambda: cli.main(["regress", "small"]),
+                              jobs=False)
+    if "0 passed, 0 failed, 13 skipped (of 13)" not in text:
+        fail(f"regress small without a dataset: {text[-1500:]}")
+    parts["regress_small_s"] = time.perf_counter() - t_part
+    phase_s = time.perf_counter() - phase_t0
+    print(f"mesh phase {phase_s:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    row.update(split, parts=parts, phase_s=phase_s,
+               kernel_rows=[r["name"] for r in rows])
+    return row, rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2630,6 +2961,9 @@ def main() -> int:
     paths += [row, fast_chain_phase(card, bench, records), fmi_phase(card),
               abea_phase(card), poa_phase(card), kmer_phase(card),
               dbg_phase(card), pileup_phase(card), variant_phase(card)]
+    row, mesh_rows = mesh_phase(card, rows[0], rows[1])
+    paths.append(row)
+    rows += mesh_rows
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

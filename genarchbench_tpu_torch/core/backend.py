@@ -10,10 +10,11 @@ PyTorch version on a CPU tensor.
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Union
 
 import torch
+
+from genarchbench_tpu_torch.core.config import EnvConfig
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -21,7 +22,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """`device`, else `GENARCH_DEVICE`, else `cuda`; raises RuntimeError
     when that names a CUDA card and none is available."""
     if device is None:
-        device = os.environ.get("GENARCH_DEVICE", "cuda")
+        device = EnvConfig.from_env().device or "cuda"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -23,6 +23,8 @@ from typing import Any, Optional
 
 import torch
 
+from genarchbench_tpu_torch.core.config import EnvConfig
+
 
 class ROITimer:
     """Times a region of device work; prints a reference-compatible line.
@@ -39,7 +41,7 @@ class ROITimer:
                  trace_dir: Optional[str] = None):
         self.name = name
         self.timing_line = timing_line
-        self.trace_dir = trace_dir or os.environ.get("GENARCH_TRACE_DIR")
+        self.trace_dir = trace_dir or EnvConfig.from_env().trace_dir
         self.elapsed = 0.0
         self._t0 = None
         self._prof = None

@@ -58,6 +58,8 @@ from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.blocks import run_blocks
 from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
+                                                  mesh_devices, shard_items)
 
 KMER = 6
 BANDWIDTH = 100
@@ -437,7 +439,7 @@ def _band_scan(ranks, ev_mean, n_events, n_kmers, shift, scale, lm, lsd,
             _band_step(s)
 
     n_blocks = (s.bands.shape[0] - 2) // block
-    ran = run_blocks(run_block, n_blocks, graphed)
+    ran = run_blocks(run_block, n_blocks, graphed, device=ranks.device)
     if counts is not None:
         counts.update(band_steps=NB - 2, band_blocks=ran)
     return s.bands, s.traces, s.blls
@@ -552,7 +554,7 @@ def _backtrace(bands, traces, blls, ranks, ev_mean, n_ev, n_km, shifts,
 
     n_blocks = math.ceil(T / block)
     ran = run_blocks(run_block, n_blocks, graphed,
-                      done=lambda: bool(s.fin.all()))
+                      done=lambda: bool(s.fin.all()), device=ranks.device)
     if counts is not None:
         counts.update(bt_steps=ran * block, bt_blocks=ran)
     return (s.fr_out[:, :T], s.e0, s.n_al, s.sum_em, s.mgap, s.k_last)
@@ -696,7 +698,8 @@ def _pairs(fr_out, e0, n_al, sum_em, mgap, k_last, n_km):
 def align_batch(seqs: List[str], event_tables: List[np.ndarray],
                 model, sample_rate: float = 4000.0, *,
                 device: Optional[str] = None,
-                stats: Optional[dict] = None):
+                stats: Optional[dict] = None,
+                mesh: Optional[Mesh] = None):
     """Adaptive banded alignment of a batch of reads: per read the list
     of (kmer_idx, event_idx) pairs (empty when QC fails).  The host
     arrays go to the device in one copy, band_scan and backtrace run
@@ -707,8 +710,22 @@ def align_batch(seqs: List[str], event_tables: List[np.ndarray],
     the first block of each loop runs eagerly and the rest are graph
     replays), and the seconds of host preparation, copies, band scan,
     backtrace and pair lists (the card synchronized at each
-    boundary)."""
-    return _align(seqs, event_tables, model, resolve_device(device), stats)
+    boundary).  With a mesh, the reads split over its devices
+    (`shard_items`), each shard aligned on its own device with its own
+    graphs."""
+    devs = mesh_devices(mesh, device)
+    if mesh is None:
+        return _align(seqs, event_tables, model, devs[0], stats)
+    out: list = [None] * len(seqs)
+    for dev, part in zip(devs, shard_items(np.arange(len(seqs)), mesh)):
+        if not len(part):
+            continue
+        with device_scope(dev):
+            res = _align([seqs[i] for i in part],
+                         [event_tables[i] for i in part], model, dev, stats)
+        for i, r in zip(part, res):
+            out[i] = r
+    return out
 
 
 def backtrace_one(bands, traces, blls, ne, nk, seq, ev_mean, model,
@@ -850,6 +867,7 @@ def run(argv: Sequence[str]) -> int:
     args = p.parse_args(argv)
 
     dev = resolve_device()
+    mesh = data_mesh()
     model = load_model(args.model)
     refs, records = read_bam(args.bam)
     contigs: Dict[str, str] = {}
@@ -917,7 +935,7 @@ def run(argv: Sequence[str]) -> int:
             if not chunk:
                 continue
             seqs = [sq for (_, _, _, _, sq) in chunk]
-            pairs = align_batch(seqs, evs, model, device=dev)
+            pairs = align_batch(seqs, evs, model, device=dev, mesh=mesh)
             writes.append(wpool.submit(emit_batch, chunk, evs, pairs))
         for w in writes:            # the writer's errors surface here
             w.result()

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import sys
 from collections import defaultdict
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,9 @@ from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.roi import ROITimer
 from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
 from genarchbench_tpu_torch.kernels.bpm_cuda import bpm_distance
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
+                                                  gather_shards, mesh_devices,
+                                                  shard_args, shard_items)
 
 W32 = 32
 
@@ -51,36 +54,60 @@ def compile_peq(patterns: Sequence[np.ndarray], W: int) -> np.ndarray:
         contrib.reshape(B, W, W32, 4), axis=2).astype(np.uint32)
 
 
-def kernel_inputs(pairs: SeqPairs) -> List[Tuple[np.ndarray, Tuple[np.ndarray, ...]]]:
-    """The kernel's inputs, one group per word count W:
-    [(pair indices, (peq (W,4,B) int32 bits, plen (B,) int32,
-    text (T,B) int8, tlen (B,) int32))]."""
+def word_groups(pairs: SeqPairs) -> Dict[int, np.ndarray]:
+    """Pair indices by the pattern's 32-bit word count W."""
     groups = defaultdict(list)
     for i in range(len(pairs)):
         groups[max(1, -(-len(pairs.patterns[i]) // W32))].append(i)
-    out = []
-    for W, idxs in sorted(groups.items()):
-        pats = [pairs.patterns[i] for i in idxs]
-        txts = [pairs.texts[i] for i in idxs]
-        B = len(idxs)
-        peq = compile_peq(pats, W).view(np.int32).transpose(1, 2, 0)
-        plen = np.array([len(p) for p in pats], np.int32)
-        tlen = np.array([len(t) for t in txts], np.int32)
-        text = np.zeros((max(int(tlen.max()), 1), B), np.int8)
-        for b, t in enumerate(txts):
-            text[:len(t), b] = t
-        out.append((np.asarray(idxs), (np.ascontiguousarray(peq), plen,
-                                       text, tlen)))
-    return out
+    return {W: np.asarray(idxs) for W, idxs in sorted(groups.items())}
 
 
-def bpm_batch(pairs: SeqPairs, device: Optional[str] = None) -> np.ndarray:
-    """Edit distance for every pair; returns (n,) int32 in input order."""
-    dev = resolve_device(device)
+def group_arrays(pairs: SeqPairs, idxs: np.ndarray,
+                 W: int) -> Tuple[np.ndarray, ...]:
+    """The kernel's inputs for the pairs idxs of word count W: peq
+    (W, 4, B) int32 bits, plen (B,) int32, text (T, B) int8, tlen (B,)
+    int32."""
+    pats = [pairs.patterns[i] for i in idxs]
+    txts = [pairs.texts[i] for i in idxs]
+    B = len(idxs)
+    peq = compile_peq(pats, W).view(np.int32).transpose(1, 2, 0)
+    plen = np.array([len(p) for p in pats], np.int32)
+    tlen = np.array([len(t) for t in txts], np.int32)
+    text = np.zeros((max(int(tlen.max()), 1), B), np.int8)
+    for b, t in enumerate(txts):
+        text[:len(t), b] = t
+    return np.ascontiguousarray(peq), plen, text, tlen
+
+
+def kernel_inputs(pairs: SeqPairs
+                  ) -> List[Tuple[np.ndarray, Tuple[np.ndarray, ...]]]:
+    """The kernel's inputs, one group per word count W:
+    [(pair indices, group_arrays of them)]."""
+    return [(idxs, group_arrays(pairs, idxs, W))
+            for W, idxs in word_groups(pairs).items()]
+
+
+def bpm_batch(pairs: SeqPairs, device: Optional[str] = None,
+              mesh: Optional[Mesh] = None) -> np.ndarray:
+    """Edit distance for every pair; returns (n,) int32 in input order.
+    With a mesh, each word count's pairs split over its devices
+    (`shard_items`: the reference's static-interleaved OMP distribution,
+    bpm/tools/align_benchmark.c:169-204, as contiguous chunks) and the
+    kernel runs on each shard: the hand kernel on a card, the plain
+    version on a CPU shard.  Every shard's launch goes out before the
+    first result is read."""
+    devs = mesh_devices(mesh, device)
     out = np.zeros(len(pairs), np.int32)
-    for idxs, arrays in kernel_inputs(pairs):
-        score = bpm_distance(*(torch.from_numpy(a).to(dev) for a in arrays))
-        out[idxs] = score.cpu().numpy()
+    for W, idxs in word_groups(pairs).items():
+        parts = shard_items(idxs, mesh)
+        scores = []
+        for dev, part in zip(devs, parts):
+            with device_scope(dev):
+                scores.append(bpm_distance(
+                    *(torch.from_numpy(a).to(dev)
+                      for a in group_arrays(pairs, part, W))))
+        for part, score in zip(parts, scores):
+            out[part] = score.cpu().numpy()
     return out
 
 
@@ -113,11 +140,12 @@ def _bitpal_device(pat, txt, plen, tlen, L, m_sc, x_sc, g_sc):
 
 
 def bitpal_batch(pairs: SeqPairs, m_sc: int, x_sc: int, g_sc: int,
-                 max_batch: int = 8192,
-                 device: Optional[str] = None) -> np.ndarray:
+                 max_batch: int = 8192, device: Optional[str] = None,
+                 mesh: Optional[Mesh] = None) -> np.ndarray:
     """Scores for the bitpal-edit / bitpal-scored algorithms
-    (benchmark_bitpal.c:30-52), batched by length."""
-    dev = resolve_device(device)
+    (benchmark_bitpal.c:30-52), batched by length; with a mesh each
+    batch's rows split over its devices (`shard_args`)."""
+    devs = mesh_devices(mesh, device)
     n = len(pairs)
     out = np.zeros(n, np.int64)
     order = np.argsort([max(len(pairs.patterns[i]), len(pairs.texts[i]))
@@ -136,9 +164,15 @@ def bitpal_batch(pairs: SeqPairs, m_sc: int, x_sc: int, g_sc: int,
             pat[b, :len(p_)] = p_
             txt[b, :len(t_)] = t_
             plen[b], tlen[b] = len(p_), len(t_)
-        args = (torch.from_numpy(a).to(dev) for a in (pat, txt, plen, tlen))
-        sc = _bitpal_device(*args, L=L, m_sc=m_sc, x_sc=x_sc, g_sc=g_sc)
-        out[chunk] = sc.cpu().numpy()
+        arrays = (pat, txt, plen, tlen)
+        shards = (zip(*shard_args(mesh, *arrays)) if mesh is not None else
+                  [[torch.from_numpy(a).to(devs[0]) for a in arrays]])
+        scores = []
+        for dev, args in zip(devs, shards):
+            with device_scope(dev):
+                scores.append(_bitpal_device(*args, L=L, m_sc=m_sc,
+                                             x_sc=x_sc, g_sc=g_sc))
+        out[chunk] = gather_shards(scores, B).numpy()
     return out
 
 
@@ -159,15 +193,16 @@ def run(argv: Sequence[str]) -> int:
     args = p.parse_args(argv)
 
     dev = resolve_device()
+    mesh = data_mesh()
     pairs = read_seqpairs(args.input, swap_longer_first=True)
     roi = ROITimer("bpm", "=> Time.Benchmark      {t:.2f} s")
     with roi:
         if args.algorithm == "bitpal-edit":
-            scores = bitpal_batch(pairs, 0, -1, -1, device=dev)
+            scores = bitpal_batch(pairs, 0, -1, -1, device=dev, mesh=mesh)
         elif args.algorithm == "bitpal-scored":
-            scores = bitpal_batch(pairs, 1, -4, -2, device=dev)
+            scores = bitpal_batch(pairs, 1, -4, -2, device=dev, mesh=mesh)
         else:
-            scores = bpm_batch(pairs, device=dev)
+            scores = bpm_batch(pairs, device=dev, mesh=mesh)
         roi.sync(scores)
     print("[Benchmark]", file=sys.stderr)
     print(f"=> Total.reads            {len(pairs)}", file=sys.stderr)

@@ -93,10 +93,13 @@ def bpm_distance(peq: torch.Tensor, plen: torch.Tensor, text: torch.Tensor,
                            device=peq.device) if S else
                torch.empty((2, W, B), dtype=torch.int32, device=peq.device))
     lib = _lib()
-    stream = torch.cuda.current_stream(peq.device).cuda_stream
-    err = lib.genarch_bpm(peq.data_ptr(), text.data_ptr(), plen.data_ptr(),
-                          tlen.data_ptr(), out.data_ptr(),
-                          scratch.data_ptr(), B, T, W, S, stream)
+    # the library launches on the current card: make it the tensors'
+    with torch.cuda.device(peq.device):
+        stream = torch.cuda.current_stream(peq.device).cuda_stream
+        err = lib.genarch_bpm(peq.data_ptr(), text.data_ptr(),
+                              plen.data_ptr(), tlen.data_ptr(),
+                              out.data_ptr(), scratch.data_ptr(), B, T, W,
+                              S, stream)
     LAUNCHES += 1
     _build.check(err, "bpm kernel")
     return out

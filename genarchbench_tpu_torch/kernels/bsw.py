@@ -33,6 +33,9 @@ from genarchbench_tpu_torch.core.roi import ROITimer
 from genarchbench_tpu_torch.io.bsw_io import BswPairs, read_bsw_pairs
 from genarchbench_tpu_torch.kernels.bsw_cuda import (AMBIG_SENTINEL,
                                                      bsw_scores)
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
+                                                  gather_shards, mesh_devices,
+                                                  shard_args)
 
 LANES = 8            # SIMD_WIDTH16 of the reference SSE2 build
 # base codes on the device: bases 0-3, DUMMY1/DUMMY2 ref/query padding
@@ -132,26 +135,37 @@ def bsw_batch(pairs: BswPairs, batch_size: int = 512,
               match: int = 1, mismatch: int = 4, ambig: int = -1,
               o_del: int = 6, e_del: int = 1, o_ins: int = 6, e_ins: int = 1,
               zdrop: int = 100, w: int = 100, end_bonus: int = 5,
-              lanes: int = LANES, device: Optional[str] = None) -> np.ndarray:
+              lanes: int = LANES, device: Optional[str] = None,
+              mesh: Optional[Mesh] = None) -> np.ndarray:
     """Scores for all pairs in input order, replicating the reference's
     batch -> sort-by-len1 -> groups-of-8 pipeline.
 
     `lanes` is the reference's SIMD group width, which determines group
     membership and hence the group-shared band: SIMD_WIDTH16 = 8 for
     the int16 path (default), SIMD_WIDTH8 = 16 for the int8 path
-    (bandedSWA.h:79-80, SSE build) — see run()'s -i8 flag."""
-    dev = resolve_device(device)
+    (bandedSWA.h:79-80, SSE build) — see run()'s -i8 flag.  With a mesh
+    the groups split over its devices (`shard_args`) and the kernel runs
+    on each shard: the hand kernel on a card, the plain version on a CPU
+    shard."""
+    devs = mesh_devices(mesh, device)
     scores = np.zeros(len(pairs), np.int32)
     if not len(pairs):
         return scores
     _, mis, amb = fill_scmat(match, mismatch, ambig)
     src, arrays = kernel_inputs(pairs, batch_size, lanes, match, end_bonus,
                                 o_ins, e_ins, o_del, e_del, w)
-    out = bsw_scores(*(torch.from_numpy(a).to(dev) for a in arrays),
-                     match=match, mismatch=mis, ambig=amb, o_del=o_del,
-                     e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, w=w)
+    shards = (zip(*shard_args(mesh, *arrays)) if mesh is not None else
+              [[torch.from_numpy(a).to(devs[0]) for a in arrays]])
+    outs = []
+    for dev, args in zip(devs, shards):
+        with device_scope(dev):
+            outs.append(bsw_scores(*args, match=match, mismatch=mis,
+                                   ambig=amb, o_del=o_del, e_del=e_del,
+                                   o_ins=o_ins, e_ins=e_ins, zdrop=zdrop,
+                                   w=w)[0])
+    out = gather_shards(outs, src.shape[0]).numpy()
     valid = src >= 0
-    scores[src[valid]] = out[0].cpu().numpy()[valid]
+    scores[src[valid]] = out[valid]
     return scores
 
 
@@ -207,7 +221,7 @@ def run(argv: Sequence[str]) -> int:
                            match=args.match, mismatch=args.mismatch,
                            ambig=args.ambig, o_del=args.gapo, e_del=args.gape,
                            o_ins=args.gapo, e_ins=args.gape, lanes=lanes,
-                           device=dev)
+                           device=dev, mesh=data_mesh())
         roi.sync(scores)
     for i, s in enumerate(scores):
         print(f"[{i}] score={s}", file=sys.stderr)

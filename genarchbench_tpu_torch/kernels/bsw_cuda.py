@@ -128,15 +128,20 @@ def bsw_scores(seq1, seq2, len1, len2, h0, myband, *, match: int,
         return tuple(out)
     order = group_order(len1, R)
     lib = _lib()
-    stream = torch.cuda.current_stream(seq2.device).cuda_stream
-    err = lib.genarch_bsw(seq1.data_ptr(), seq2.data_ptr(), len1.data_ptr(),
-                          len2.data_ptr(), h0.data_ptr(), myband.data_ptr(),
-                          order.data_ptr(), out.data_ptr(), G, L, R, C2, K,
-                          smem,
-                          *(sc[k] for k in ("match", "mismatch", "ambig",
-                                            "o_del", "e_del", "o_ins",
-                                            "e_ins", "zdrop", "w")),
-                          stream)
+    # the library sets the kernel's shared memory and launches on the
+    # current card: make it the tensors'
+    with torch.cuda.device(seq2.device):
+        stream = torch.cuda.current_stream(seq2.device).cuda_stream
+        err = lib.genarch_bsw(seq1.data_ptr(), seq2.data_ptr(),
+                              len1.data_ptr(), len2.data_ptr(),
+                              h0.data_ptr(), myband.data_ptr(),
+                              order.data_ptr(), out.data_ptr(), G, L, R, C2,
+                              K, smem,
+                              *(sc[k] for k in ("match", "mismatch",
+                                                "ambig", "o_del", "e_del",
+                                                "o_ins", "e_ins", "zdrop",
+                                                "w")),
+                              stream)
     LAUNCHES += 1
     _build.check(err, "bsw kernel")
     return tuple(out)

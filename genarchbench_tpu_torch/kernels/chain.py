@@ -48,6 +48,8 @@ from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.roi import Laps, ROITimer
 from genarchbench_tpu_torch.io import chain_io
 from genarchbench_tpu_torch.sharding.batching import plan_batches
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
+                                                  mesh_devices, shard_items)
 
 MAX_SKIP = 25
 MAX_ITER = 5000
@@ -373,40 +375,48 @@ def scalar_dp(recs: Sequence[chain_io.ChainRecord],
 
 def chain_batch(records: Sequence[chain_io.ChainRecord],
                 device: Optional[str] = None,
-                stats: Optional[Dict[str, float]] = None) -> List[tuple]:
+                stats: Optional[Dict[str, float]] = None,
+                mesh: Optional[Mesh] = None) -> List[tuple]:
     """chain_dp over records: [(scores, parents, peaks)] in order.
 
     Records go into plans of at most MAX_BATCH records and CELL_BUDGET
     padded cells, each run by the windowed kernel; the records
-    `gap_corrections` defers run the scalar C DP.  `stats`, when a dict,
-    is filled with the plans, their (W, N) window widths and padded
-    lengths, the anchor steps and deferred records of the run and the
-    seconds of host preparation, copies, anchor loops and scalar DP
-    (the card is synchronized at each boundary)."""
-    dev = resolve_device(device)
+    `gap_corrections` defers run the scalar C DP.  With a mesh, each
+    plan's records split over its devices (`shard_items`), one plan of
+    its own on each.  `stats`, when a dict, is filled with the plans,
+    their (W, N) window widths and padded lengths, the anchor steps and
+    deferred records of the run and the seconds of host preparation,
+    copies, anchor loops and scalar DP (the first device synchronized at
+    each boundary)."""
+    devs = mesh_devices(mesh, device)
     counts = dict(plans=0, widths=[], steps=0)
     if stats is not None:
         stats.update(prep_s=0.0, h2d_s=0.0, loop_s=0.0, d2h_s=0.0,
                      scalar_s=0.0)
-    lap = Laps(stats, dev)
+    lap = Laps(stats, devs[0])
     results: List[tuple] = [None] * len(records)
     ws_all = chain_io.window_starts_all(records, MAX_ITER)
-    deferred: List[int] = []
+    deferred: Dict[int, None] = {}     # ordered, once each
     plans = plan_batches([r.n for r in records], CELL_BUDGET, MAX_BATCH)
     for plan in plans:
-        recs = [records[k] for k in plan.indices]
-        host = plan_inputs(recs, [ws_all[k] for k in plan.indices],
-                           plan.length)
-        deferred += [plan.indices[b] for b in np.flatnonzero(host.over)]
-        counts["plans"] += 1
-        counts["widths"].append((host.W, plan.length))
-        counts["steps"] += int(host.n.max())
-        lap("prep_s")
-        out = run_plan(host, dev, lap)
-        for b, k in enumerate(plan.indices):
-            if not host.over[b]:
-                results[k] = tuple(out[:, b, :records[k].n])
+        for dev, part in zip(devs, shard_items(np.asarray(plan.indices),
+                                               mesh)):
+            recs = [records[k] for k in part]
+            host = plan_inputs(recs, [ws_all[k] for k in part],
+                               plan.length)
+            deferred.update((int(part[b]), None)
+                            for b in np.flatnonzero(host.over))
+            counts["plans"] += 1
+            counts["widths"].append((host.W, plan.length))
+            counts["steps"] += int(host.n.max())
+            lap("prep_s")
+            with device_scope(dev):
+                out = run_plan(host, dev, lap)
+            for b, k in enumerate(part):
+                if not host.over[b]:
+                    results[k] = tuple(out[:, b, :records[k].n])
     lap("prep_s")
+    deferred = list(deferred)
     sub = scalar_dp([records[k] for k in deferred],
                     [ws_all[k] for k in deferred])
     for k, res in zip(deferred, sub):
@@ -431,7 +441,7 @@ def run(argv: Sequence[str]) -> int:
     records = chain_io.read_records_path(args.input)
     roi = ROITimer("chain", "Time in kernel: {t:.2f} sec")
     with roi:
-        results = chain_batch(records, device=dev)
+        results = chain_batch(records, device=dev, mesh=data_mesh())
     roi.report()
 
     with open(args.output, "w") as f:

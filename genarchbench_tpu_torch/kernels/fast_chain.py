@@ -42,6 +42,8 @@ from genarchbench_tpu_torch.io import chain_io
 from genarchbench_tpu_torch.kernels.chain import (MAX_ITER, NEG, _log2_floor,
                                                   pad_planes)
 from genarchbench_tpu_torch.sharding.batching import plan_batches
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
+                                                  mesh_devices, shard_items)
 
 CHUNK = 128
 TILE = 128
@@ -152,51 +154,62 @@ def _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg, steps: int,
 
 def fast_chain_batch(records: Sequence[chain_io.ChainRecord],
                      device: Optional[str] = None,
-                     stats: Optional[Dict[str, float]] = None) -> List[tuple]:
+                     stats: Optional[Dict[str, float]] = None,
+                     mesh: Optional[Mesh] = None) -> List[tuple]:
     """fast-chain DP over records: [(scores, parents, None)] in order.
 
     Records go into plans of at most MAX_BATCH records and CELL_BUDGET
-    padded cells.  `stats`, when a dict, is filled with the plans, tiles,
-    far chunks and near steps of the run and the seconds of host
-    preparation, copies, far and near passes (the card is synchronized
-    at each boundary)."""
-    dev = resolve_device(device)
+    padded cells; with a mesh, each plan's records split over its
+    devices (`shard_items`).  `stats`, when a dict, is filled with the
+    plans, tiles, far chunks and near steps of the run and the seconds
+    of host preparation, copies, far and near passes (the first device
+    synchronized at each boundary)."""
+    devs = mesh_devices(mesh, device)
     counts = dict(plans=0, tiles=0, far_chunks=0, near_steps=0)
     if stats is not None:
         stats.update(prep_s=0.0, h2d_s=0.0, far_s=0.0, near_s=0.0,
                      d2h_s=0.0)
-    lap = Laps(stats, dev)
+    lap = Laps(stats, devs[0])
     results: List[tuple] = [None] * len(records)
     ws_all = chain_io.window_starts_all(records, MAX_ITER)
     plans = plan_batches([r.n for r in records], CELL_BUDGET, MAX_BATCH)
     for plan in plans:
-        recs = [records[k] for k in plan.indices]
-        n = np.array([r.n for r in recs], np.int32)
-        planes = pad_planes(recs, [ws_all[k] for k in plan.indices], n,
-                            plan.length)
-        steps = int(n.max())
-        chunks = far_chunks(planes[4], steps)
-        counts["plans"] += 1
-        counts["tiles"] += len(chunks)
-        counts["far_chunks"] += sum(chunks)
-        counts["near_steps"] += steps
-        lap("prep_s")
-        x_lo, qi, span, _, st = torch.from_numpy(planes).to(dev)
-        params = (([min(r.max_dist_x, r.max_dist_y) for r in recs],
-                   np.int32), ([r.bw for r in recs], np.int32),
-                  ([r.avg_qspan for r in recs], np.float32))
-        mdxy, bw, avg = (torch.from_numpy(np.array(v, dt)).to(dev)
-                         for v, dt in params)
-        lap("h2d_s")
-        scores, parents = _fast_chain_device(x_lo, qi, span, st, mdxy, bw,
-                                             avg, steps, chunks, lap)
-        out = torch.stack([scores, parents]).cpu().numpy()
-        lap("d2h_s")
-        for b, k in enumerate(plan.indices):
-            results[k] = (out[0, b, :n[b]], out[1, b, :n[b]], None)
+        for dev, part in zip(devs, shard_items(np.asarray(plan.indices),
+                                               mesh)):
+            with device_scope(dev):
+                _fast_chain_plan([records[k] for k in part], part, ws_all,
+                                 plan.length, dev, lap, counts, results)
     if stats is not None:
         stats.update(counts)
     return results
+
+
+def _fast_chain_plan(recs, idxs, ws_all, length, dev, lap, counts,
+                     results) -> None:
+    """One plan of records recs (indices idxs) on dev, their results
+    written into `results`."""
+    n = np.array([r.n for r in recs], np.int32)
+    planes = pad_planes(recs, [ws_all[k] for k in idxs], n, length)
+    steps = int(n.max())
+    chunks = far_chunks(planes[4], steps)
+    counts["plans"] += 1
+    counts["tiles"] += len(chunks)
+    counts["far_chunks"] += sum(chunks)
+    counts["near_steps"] += steps
+    lap("prep_s")
+    x_lo, qi, span, _, st = torch.from_numpy(planes).to(dev)
+    params = (([min(r.max_dist_x, r.max_dist_y) for r in recs], np.int32),
+              ([r.bw for r in recs], np.int32),
+              ([r.avg_qspan for r in recs], np.float32))
+    mdxy, bw, avg = (torch.from_numpy(np.array(v, dt)).to(dev)
+                     for v, dt in params)
+    lap("h2d_s")
+    scores, parents = _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg,
+                                         steps, chunks, lap)
+    out = torch.stack([scores, parents]).cpu().numpy()
+    lap("d2h_s")
+    for b, k in enumerate(idxs):
+        results[k] = (out[0, b, :n[b]], out[1, b, :n[b]], None)
 
 
 def run(argv: Sequence[str]) -> int:
@@ -213,7 +226,7 @@ def run(argv: Sequence[str]) -> int:
     records = chain_io.read_records_path(args.input)
     roi = ROITimer("fast-chain", "Time in kernel: {t:.2f} sec")
     with roi:
-        results = fast_chain_batch(records, device=dev)
+        results = fast_chain_batch(records, device=dev, mesh=data_mesh())
     roi.report()
 
     with open(args.output, "w") as f:

@@ -35,8 +35,10 @@ s-dedup a `cummax` over masked slot indices and the compaction one
 shift scans for the TPU; the item loops drop their finished lanes once
 half of them are done, and read the card's live count once per
 CHECK_EVERY steps (a finished lane is a no-op, so the extra steps change
-nothing); the width narrowing, the packed u32 items and output blob and
-the mesh are not ported (ROADMAP queue 1, item 6).  Two choices are
+nothing); the width narrowing and the packed u32 items and output blob
+are not ported (ROADMAP queue 1, item 6).  The mesh runs one thread a
+shard (see `FMISearch`), where the JAX package ran one SPMD program
+whose loop conditions reduce over the mesh (`_gany`).  Two choices are
 the card's: table words are read by `take` of the words needed, not by
 `index_select` of whole rows, whose kernel on the card is several times
 slower for rows this narrow, and every scan over a short last dimension
@@ -46,6 +48,7 @@ transposed copy (`_scan0`).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import sys
@@ -58,6 +61,10 @@ import torch.nn.functional as F
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.sharding.mesh import (Exchange, Mesh, all_gather,
+                                                  data_mesh, device_scope,
+                                                  psum_scatter, run_threads,
+                                                  shard_ranges)
 
 CP_SHIFT = 6
 CP_MASK = 63
@@ -342,7 +349,7 @@ def _occ4(fmi: "FMISearch", pp: torch.Tensor) -> torch.Tensor:
     flat = pp.reshape(-1)
     W = fmi.occ.shape[1]
     cid = (flat >> CP_SHIFT).clamp_(0, fmi.ncp - 1).to(i64)
-    rows = fmi.occ.take(cid[:, None] * W + fmi.wcols)     # (N, 12|16) int32
+    rows = fmi.take(cid[:, None] * W + fmi.wcols)         # (N, 12|16) int32
     words = (rows[:, -8:].to(i64) & M32).view(-1, 2, 4)   # hi, lo
     sh = _shifts(flat & CP_MASK)                          # (N, 2)
     pc = _popcount32(words >> sh[:, :, None]).sum(1)      # (N, 4) int64
@@ -383,7 +390,7 @@ def _backward_ext_ks(fmi: "FMISearch", k, s, a):
     pp = torch.stack([k, k + s], -1)                      # (B, P, 2)
     cid = (pp >> CP_SHIFT).clamp_(0, fmi.ncp - 1).to(i64) * fmi.occ.shape[1]
     cols = (fmi.cols + ac[:, None])[:, None, None, :]     # (B, 1, 1, C)
-    v = fmi.occ.take(cid[..., None] + cols)               # (B, P, 2, C)
+    v = fmi.take(cid[..., None] + cols)                   # (B, P, 2, C)
     if fmi.wide:
         cnt = (v[..., 0].to(i64) & M32) | (v[..., 1].to(i64) << 32)
     else:
@@ -724,26 +731,94 @@ class FMISearch:
     """The index's tables on the device: count (5,), the packed
     checkpoint rows (ncp, 12) int32, or (ncp, 16) when wide, and the
     sentinel row.  Indexes past WIDE_ROWS rows take the wide path (row
-    state int64); GENARCH_FMI_FORCE_WIDE=1 takes it on any index."""
+    state int64); GENARCH_FMI_FORCE_WIDE=1 takes it on any index.
 
-    def __init__(self, index: FMIndex, device=None):
-        self.device = resolve_device(device)
+    With a mesh (of this process's devices), `search_reads` splits the
+    reads over its devices (the reference's OMP over read batches,
+    fmi.cpp:250-263), one shard a device, run one after another.
+    The tables are replicated on every device, or with `shard_tables`
+    split by rows into contiguous ranges, one a device, so that an index
+    larger than one card spreads over the mesh.  Every table read
+    (GET_OCC) is then JAX's collective pair (fmi.py:291-347): the
+    positions of every shard gathered (padded to the mesh-wide largest,
+    for equal shapes), each device's masked read of the rows it holds,
+    and a sum scattered back to the shards.  The shards then run a
+    thread each, and the threads meet at each read (`Exchange`); a shard with no live lane left takes
+    part with no positions, so no shard waits for another's loop to
+    end, which JAX's lockstep loops (`_gany`) had to arrange."""
+
+    def __init__(self, index: FMIndex, device=None,
+                 mesh: Optional[Mesh] = None, shard_tables: bool = False):
         self.index = index
         self.wide = (index.seq_len > WIDE_ROWS
                      or os.environ.get("GENARCH_FMI_FORCE_WIDE") == "1")
         self.rowdt = i64 if self.wide else i32
+        self.mesh = mesh
+        self.shard_tables = False
+        self.shard = 0                   # this view's shard of the mesh
+        self.exchange: Optional[Exchange] = None
+        occ = occ_table(index, self.wide).view(np.int32)
+        self.ncp = occ.shape[0]
+        self.shards: List[FMISearch] = []
+        if mesh is None:
+            self._place(resolve_device(device), occ, 0)
+            return
+        if mesh.world > 1:
+            raise ValueError("fmi: a mesh of one process's devices only")
+        self.device = mesh.devices[0]
+        L = len(mesh.devices)
+        c = -(-self.ncp // L) if shard_tables else 0
+        for i, dev in enumerate(mesh.devices):
+            view = copy.copy(self)
+            view.mesh = None
+            view.shard = i
+            view._place(dev, occ[i * c:(i + 1) * c] if c else occ, i * c)
+            self.shards.append(view)
+        self.shard_tables = bool(c)
+
+    def _place(self, dev: torch.device, rows: np.ndarray, row0: int) -> None:
+        """The tables on dev, with the checkpoint rows `rows` (those from
+        row0 on)."""
+        self.device = dev
         cdt = np.int64 if self.wide else np.int32
-        dev = self.device
-        self.count5 = torch.from_numpy(index.count.astype(cdt)).to(dev)
-        self.occ = torch.from_numpy(
-            occ_table(index, self.wide).view(np.int32)).to(dev)
-        self.ncp = self.occ.shape[0]
-        self.sentinel = torch.tensor(index.sentinel, dtype=self.rowdt,
+        self.count5 = torch.from_numpy(self.index.count.astype(cdt)).to(dev)
+        self.occ = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        self.row0 = row0
+        self.sentinel = torch.tensor(self.index.sentinel, dtype=self.rowdt,
                                      device=dev)
         # a row's words, and a char's: count (low and high when wide),
         # hi, lo
-        self.wcols = torch.arange(self.occ.shape[1], dtype=i64, device=dev)
+        self.wcols = torch.arange(rows.shape[1], dtype=i64, device=dev)
         self.cols = self.wcols[::4]
+
+    def take(self, idx: torch.Tensor) -> torch.Tensor:
+        """The table words at flat indices idx (row * width + word): a
+        local `take`, or the sharded tables' collective read."""
+        if self.exchange is None:
+            return self.occ.take(idx)
+        return self.exchange.exchange(self.shard, idx)
+
+    def _sharded_take(self, parts: list) -> list:
+        """The collective read of the row-sharded tables for every
+        shard's flat indices parts[i] (None for a shard that left)."""
+        width = self.shards[0].occ.shape[1]
+        m = max(p.numel() for p in parts if p is not None)
+        pos = [F.pad(p.reshape(-1), (0, m - p.numel()), value=-1)
+               if p is not None else
+               torch.full((m,), -1, dtype=i64, device=v.device)
+               for p, v in zip(parts, self.shards)]
+        mine = []
+        for want, v in zip(all_gather(self.mesh, pos), self.shards):
+            held = torch.zeros_like(want, dtype=i32)
+            if v.occ.numel():
+                loc = want - v.row0 * width
+                ok = (loc >= 0) & (loc < v.occ.numel())
+                held = torch.where(
+                    ok, v.occ.take(loc.clamp(0, v.occ.numel() - 1)), held)
+            mine.append(held)
+        got = psum_scatter(self.mesh, mine)
+        return [g[:p.numel()].view(p.shape) if p is not None else None
+                for g, p in zip(got, parts)]
 
     def restart_items(self, qdb, qoff, qlen, min_intv: int, Rcap: int = 16,
                       stats: Optional[dict] = None):
@@ -848,6 +923,35 @@ class FMISearch:
         return rid[bb], out[bb, 0, rr], out[bb, 1, rr]
 
 
+def _search_mesh(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
+                 min_seed: int) -> List[Tuple]:
+    """search_reads over fmi's mesh: the reads cut by `shard_ranges`,
+    each shard searching its reads on its device, one after another, or
+    with sharded tables a thread a shard, meeting at every table read;
+    the shards' sorted results, their read ids made global, in shard
+    order."""
+    exch = (Exchange(len(fmi.shards), fmi._sharded_take)
+            if fmi.shard_tables else None)
+    ranges = shard_ranges(len(reads), fmi.mesh)
+    fns = []
+    for view, (lo, hi) in zip(fmi.shards, ranges):
+        view = copy.copy(view)
+        view.exchange = exch
+
+        def one(view=view, lo=lo, hi=hi):
+            if hi == lo:
+                return None
+            with device_scope(view.device):
+                return search_reads(view, reads[lo:hi], batch_size,
+                                    min_seed)[0]
+        fns.append(one)
+    results = (run_threads(fns, exch) if exch is not None
+               else [fn() for fn in fns])
+    parts = [(r + lo, m, n) for (lo, _), res in zip(ranges, results)
+             if res is not None for r, m, n in [res]]
+    return [tuple(np.concatenate(a) for a in zip(*parts))]
+
+
 def search_reads(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
                  min_seed: int,
                  stats: Optional[dict] = None) -> List[Tuple]:
@@ -865,7 +969,11 @@ def search_reads(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
     and loop steps, the live backwardExt extensions of each loop
     (ext_*), and the seconds of host preparation, copies, restart scan,
     passes 1, 2 and 3 and the sort (the card synchronized at each
-    boundary)."""
+    boundary); on a mesh (`FMISearch`) `stats` are not taken."""
+    if fmi.mesh is not None:
+        if stats is not None:
+            raise ValueError("fmi: stats are taken on one device")
+        return _search_mesh(fmi, reads, batch_size, min_seed)
     n = len(reads)
     lens = np.array([len(r) for r in reads], np.int64)
     L = int(lens.max())
@@ -1024,7 +1132,9 @@ def run(argv: Sequence[str]) -> int:
 
     print("before reading sequences")
     reads = read_queries(query_file)
-    fmi = FMISearch(load_index(ref_file), device=dev)
+    fmi = FMISearch(load_index(ref_file), device=dev, mesh=data_mesh(),
+                    shard_tables=os.environ.get("GENARCH_FMI_SHARD_TABLES",
+                                                "0") == "1")
 
     lens = [len(r) for r in reads]
     print(f"numReads = {len(reads)}, max_readlength = {max(lens)}, "

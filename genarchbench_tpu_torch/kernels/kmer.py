@@ -29,8 +29,19 @@ one `torch.add(acc, b, alpha=4**j)`, subtracted from 4**k - 1 at the
 end; JAX's host merge by `np.unique` in `count_distinct` (a TPU sort
 workaround) is dropped, so the codes never leave the card; a batch holds
 its reads' rows only (JAX pads each to a fixed row count to bound its
-compiles).  `count_distinct_sharded` is not ported yet (ROADMAP queue 1,
-item 12).
+compiles).
+
+`count_distinct_sharded` spreads the count over a mesh: each shard
+computes the codes of its share of the reads on its own device (JAX
+computed every code on one device and sharded them), owners come from
+a 64-bit mix of the code (JAX: an int32 mix; which shard owns a code
+does not change the count), and one `all_to_all` with uneven split
+sizes hands every code to its owner, where JAX exchanged fixed-capacity
+buckets (`capacity_factor`) and fell back to the one-device count when
+one overflowed.  Neither the capacity nor the fallback is kept.  Each
+owner then counts its codes as `count_distinct` does, 256-wrap
+included, and a `psum` adds the counts: the result is
+`count_distinct`'s.
 """
 
 from __future__ import annotations
@@ -48,6 +59,10 @@ from genarchbench_tpu_torch.core.config import load_kv_config
 from genarchbench_tpu_torch.core.roi import Laps, ROITimer
 from genarchbench_tpu_torch.io.fasta_io import ReadSet, read_fasta
 from genarchbench_tpu_torch.sharding.batching import next_pow2
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, all_to_all,
+                                                  device_scope,
+                                                  global_data_mesh, psum,
+                                                  shard_ranges)
 
 MAX_K = 31                  # an int64 code holds 31 bases
 SENTINEL = 1 << 62          # sorts after every valid code (< 4**31)
@@ -206,6 +221,67 @@ def count_distinct_hostmerge(reads: ReadSet, k: int,
     if not uniq_parts:
         return 0
     return int(np.unique(np.concatenate(uniq_parts)).size)
+
+
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)     # splitmix64's multipliers, as
+_MIX2 = 0x94D049BB133111EB - (1 << 64)     # the int64 of the same bits
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x >> s on the 64 bits of x, as a uint64 shift: torch's `>>` on
+    int64 copies the sign bit, so the top s bits are masked off."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def code_owner(codes: torch.Tensor, S: int) -> torch.Tensor:
+    """The shard (0..S-1) that owns each int64 code: splitmix64's
+    finalizer of the code (multiplies wrap at 64 bits in torch's int64,
+    shifts are logical), its top 31 bits mod S."""
+    x = codes ^ _srl(codes, 30)
+    x = x * _MIX1
+    x = x ^ _srl(x, 27)
+    x = x * _MIX2
+    x = x ^ _srl(x, 31)
+    return _srl(x, 33) % S
+
+
+def count_distinct_sharded(reads: ReadSet, k: int,
+                           mesh: Optional[Mesh] = None) -> int:
+    """`count_distinct` spread over a mesh (by default every process's
+    devices, `global_data_mesh`): the reads cut into one contiguous share
+    a shard (`shard_ranges`; a shard may hold none), each share's codes
+    on its device, every code sent to its owner (`code_owner`) by one
+    `all_to_all`, each owner's count as `count_distinct`'s and a `psum`
+    of the counts.  A process of a process group passes every read and
+    counts its own shards' shares.  Without a mesh, or on one device,
+    `count_distinct`."""
+    _check_k(k)
+    if mesh is None:
+        mesh = global_data_mesh()
+    if mesh is None or mesh.size == 1:
+        return count_distinct(reads, k,
+                              device=mesh.devices[0] if mesh else None)
+    S = mesh.size
+    sends = []
+    for dev, (lo, hi) in zip(mesh.devices, shard_ranges(len(reads), mesh)):
+        with device_scope(dev):
+            share = ReadSet(reads.names[lo:hi], reads.seqs[lo:hi])
+            codes = [_codes_device(torch.from_numpy(arr).to(dev),
+                                   torch.from_numpy(lens).to(dev),
+                                   k).reshape(-1)
+                     for arr, lens in _batches(share, k, 1 << 25)]
+            c = (torch.cat(codes) if codes else
+                 torch.zeros(0, dtype=torch.int64, device=dev))
+            c = c[c < SENTINEL]
+            owner = code_owner(c, S)
+            order = torch.argsort(owner, stable=True)
+            sizes = torch.bincount(owner, minlength=S).tolist()
+            sends.append(list(torch.split(c[order], sizes)))
+    counts = []
+    for dev, got in zip(mesh.devices, all_to_all(mesh, sends)):
+        with device_scope(dev):
+            counts.append(_distinct_count_device(torch.cat(got)))
+    return int(psum(mesh, counts)[0])
 
 
 # ---------------------------------------------------------------------------

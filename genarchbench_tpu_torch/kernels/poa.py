@@ -642,7 +642,7 @@ def _convex_dp_rows(node_ch, seq, preds, npred, H0col, F0col, O0col,
         for _ in range(block):
             _dp_step(s)
 
-    ran = run_blocks(run_block, n_blocks, graphed)
+    ran = run_blocks(run_block, n_blocks, graphed, device=node_ch.device)
     # NW start: the last query column, first (rank order) max over end
     # rows (the reference's strict max_score < sc keeps the first, :459-463)
     Hcol = s.state[:, 1:R + 1, 0].gather(
@@ -737,7 +737,7 @@ def _poa_walk(planes, start_i, Wlen, maxstep: int, block: int = BLOCK,
             _walk_step(s)
 
     ran = run_blocks(run_block, n_blocks, graphed,
-                     done=lambda: bool(s.fin.all()))
+                     done=lambda: bool(s.fin.all()), device=planes.device)
     if counts is not None:
         counts.update(walk_steps=ran * block, walk_blocks=ran)
     return s.out[:, 0, :maxstep], s.out[:, 1, :maxstep]

@@ -50,6 +50,8 @@ from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.roi import ROITimer
 from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
+from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
+                                                  mesh_devices, shard_items)
 
 NULL = -10              # AFFINE_WAVEFRONT_OFFSET_NULL (affine_wavefront.h:48)
 NEG = -(1 << 29)        # "absent term" for masked maxes (never observable)
@@ -572,15 +574,19 @@ def _forward_chunk(pat, txt, plen, tlen, scap, x, o, e, red_len,
 def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
               max_batch: int = 16384, scap0: int = 64, red_len: int = 0,
               red_dist: int = 0, device: Optional[str] = None,
-              stats: Optional[Dict[str, float]] = None) -> List[str]:
+              stats: Optional[Dict[str, float]] = None,
+              mesh: Optional[Mesh] = None) -> List[str]:
     """RLE CIGAR per pair in input order (complete-wavefronts mode).
+    With a mesh, each chunk's pairs split over its devices
+    (`shard_items`), each shard running its own score loop to its own
+    cap: a pair's CIGAR depends on no other pair.
 
     `stats`, when a dict, is filled with the chunks, score steps,
     resumes and backtrace steps of the run, the bytes of its backtrace
     stores and mismatch tables (each written or read once at least),
     and the seconds of its forward passes, backtraces and CIGAR assembly
     (read at the syncs the run makes anyway)."""
-    dev = resolve_device(device)
+    devs = mesh_devices(mesh, device)
     if stats is not None:
         stats.update(chunks=0, score_steps=0, resumes=0, bt_steps=0,
                      forward_bytes=0, forward_s=0.0, backtrace_s=0.0,
@@ -623,52 +629,66 @@ def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
         mb = max(256, min(max_batch, (1 << 26) // max(D0 * scap0, 1)))
         scap_start = scap0     # learned: later chunks of the bucket
         for lo_i in range(0, len(idxs), mb):
-            t0 = time.perf_counter()
-            chunk = idxs[lo_i:lo_i + mb]
-            ids = np.asarray(chunk)
-            with torch.profiler.record_function("wfa.forward"):
-                pat = torch.from_numpy(_fill(flat_p, off_p, ids, lens_p, Lp,
-                                             250)).to(dev)
-                txt = torch.from_numpy(_fill(flat_t, off_t, ids, lens_t, Lt,
-                                             251)).to(dev)
-                plen = torch.from_numpy(lens_p[ids].astype(np.int32)).to(dev)
-                tlen = torch.from_numpy(lens_t[ids].astype(np.int32)).to(dev)
-                state, K0, scap, max_score, resumes = _forward_chunk(
-                    pat, txt, plen, tlen, scap_start, x, o, e, red_len,
-                    red_dist)
-            scap_start = scap
-            t1 = time.perf_counter()
-
-            # every active backtrace step lowers the score by at least
-            # min(e, x), so the max final score (on the host from the
-            # forward's summary) bounds the step count; degenerate
-            # penalties (CLI -G 0 / -x 0) have no such bound and run to
-            # the store's height
-            if min(e, x) >= 1:
-                max_steps = min(max_score // min(e, x) + 3, scap)
-            else:
-                max_steps = scap
-            with torch.profiler.record_function("wfa.backtrace"):
-                res = _wfa_backtrace(state.store, state.fscore, state.foff,
-                                     plen, tlen, K0=K0, x=x, o=o, e=e,
-                                     max_steps=max_steps)
-                records = [r.cpu().numpy() for r in res[1:]]
-            t2 = time.perf_counter()
-            with torch.profiler.record_function("wfa.cigars"):
-                cigs = native.wfa_cigars(*records)
-            for b, i in enumerate(chunk):
-                out[i] = cigs[b]
-            if stats is not None:
-                stats["chunks"] += 1
-                stats["score_steps"] += state.s
-                stats["resumes"] += resumes
-                stats["bt_steps"] += res[0]
-                stats["forward_bytes"] += 4 * state.store.numel() \
-                    + 8 * len(chunk) * state.store.shape[2] * (Lp // 32)
-                stats["forward_s"] += t1 - t0
-                stats["backtrace_s"] += t2 - t1
-                stats["cigar_s"] += time.perf_counter() - t2
+            chunk = np.asarray(idxs[lo_i:lo_i + mb])
+            caps = []
+            for dev, ids in zip(devs, shard_items(chunk, mesh)):
+                with device_scope(dev):
+                    cigs, scap = _wfa_chunk(
+                        ids, dev, (flat_p, off_p, lens_p, Lp),
+                        (flat_t, off_t, lens_t, Lt), scap_start, x, o, e,
+                        red_len, red_dist, stats)
+                caps.append(scap)
+                for b, i in enumerate(ids):
+                    out[i] = cigs[b]
+            scap_start = max(caps)
     return out
+
+
+def _wfa_chunk(ids, dev, pats, txts, scap_start, x, o, e, red_len, red_dist,
+               stats):
+    """One chunk of pairs `ids` on dev: the forward score loop, the
+    backtrace and the CIGARs.  pats and txts are (flat codes, offsets,
+    lengths, padded width).  Returns (the CIGARs, the final score
+    cap)."""
+    (flat_p, off_p, lens_p, Lp), (flat_t, off_t, lens_t, Lt) = pats, txts
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("wfa.forward"):
+        pat = torch.from_numpy(_fill(flat_p, off_p, ids, lens_p, Lp,
+                                     250)).to(dev)
+        txt = torch.from_numpy(_fill(flat_t, off_t, ids, lens_t, Lt,
+                                     251)).to(dev)
+        plen = torch.from_numpy(lens_p[ids].astype(np.int32)).to(dev)
+        tlen = torch.from_numpy(lens_t[ids].astype(np.int32)).to(dev)
+        state, K0, scap, max_score, resumes = _forward_chunk(
+            pat, txt, plen, tlen, scap_start, x, o, e, red_len, red_dist)
+    t1 = time.perf_counter()
+
+    # every active backtrace step lowers the score by at least min(e, x),
+    # so the max final score (on the host from the forward's summary)
+    # bounds the step count; degenerate penalties (CLI -G 0 / -x 0) have
+    # no such bound and run to the store's height
+    if min(e, x) >= 1:
+        max_steps = min(max_score // min(e, x) + 3, scap)
+    else:
+        max_steps = scap
+    with torch.profiler.record_function("wfa.backtrace"):
+        res = _wfa_backtrace(state.store, state.fscore, state.foff, plen,
+                             tlen, K0=K0, x=x, o=o, e=e, max_steps=max_steps)
+        records = [r.cpu().numpy() for r in res[1:]]
+    t2 = time.perf_counter()
+    with torch.profiler.record_function("wfa.cigars"):
+        cigs = native.wfa_cigars(*records)
+    if stats is not None:
+        stats["chunks"] += 1
+        stats["score_steps"] += state.s
+        stats["resumes"] += resumes
+        stats["bt_steps"] += res[0]
+        stats["forward_bytes"] += 4 * state.store.numel() \
+            + 8 * len(ids) * state.store.shape[2] * (Lp // 32)
+        stats["forward_s"] += t1 - t0
+        stats["backtrace_s"] += t2 - t1
+        stats["cigar_s"] += time.perf_counter() - t2
+    return cigs, scap
 
 
 def cell_updates(pairs: SeqPairs) -> int:
@@ -705,7 +725,7 @@ def run(argv: Sequence[str]) -> int:
                            e=args.gap_extension,
                            red_len=args.red_len if adaptive else 0,
                            red_dist=args.red_dist if adaptive else 0,
-                           device=dev)
+                           device=dev, mesh=data_mesh())
     print(f"Total.reads: {len(pairs)}")
     roi.report(file=sys.stdout)
     cells = cell_updates(pairs)

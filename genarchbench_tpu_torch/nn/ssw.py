@@ -166,7 +166,7 @@ def _sweep(refs, reads, ref_len, read_len, mat, terminate, Lref, Lread,
     if steps:
         ran = run_blocks(run_block, math.ceil(steps / block), graphed,
                          done=lambda: bool((s.stop | (s.i >= s.ref_len))
-                                           .all()))
+                                           .all()), device=refs.device)
     if counts is not None:
         counts["steps"] = counts.get("steps", 0) + ran * block
         counts["blocks"] = counts.get("blocks", 0) + ran

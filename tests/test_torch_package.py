@@ -47,7 +47,12 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.io.chain_io, "
             "genarchbench_tpu_torch.nn.variant, "
             "genarchbench_tpu_torch.nn.ssw, "
-            "genarchbench_tpu_torch.sharding.batching; "
+            "genarchbench_tpu_torch.sharding.batching, "
+            "genarchbench_tpu_torch.sharding.mesh, "
+            "genarchbench_tpu_torch.core.config, "
+            "genarchbench_tpu_torch.harness, "
+            "genarchbench_tpu_torch.harness.scheduler, "
+            "genarchbench_tpu_torch.harness.dataset_regress; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'genarchbench_tpu' "
             "or m.startswith('genarchbench_tpu.')); print(bad)")
@@ -174,6 +179,7 @@ def test_public_functions_default_to_the_card(monkeypatch):
                  lambda: poa.ConvexNWEngine(),
                  lambda: kmer.count_distinct(reads, 11),
                  lambda: kmer.count_distinct_hostmerge(reads, 11),
+                 lambda: kmer.count_distinct_sharded(reads, 11),
                  lambda: dbg._window_min_mask(["ACGT" * 10],
                                               [np.full(40, 30, np.uint8)]),
                  lambda: pileup.calculate_pileup([], 0, 0, 100),
