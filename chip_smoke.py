@@ -158,7 +158,17 @@ Phases (any failure exits non-zero and prints no result):
      `regress small` without a dataset root, every kernel a SKIP (the
      CPU determinism sweep, `regress --platform cpu --devices 1,2,8`,
      runs in tests/test_torch_cli.py, not here: its jobs are CPU work);
- 17. a `{"paths": [...]}` line for the torch-op paths, a
+ 17. the nn-base training step (`train_phase`, after the mesh phase; no
+     hand kernel: cuDNN convolutions, torch's CTC and AdamW, TF32 off):
+     `entry.dryrun_multichip(2)` on two shards of the one card (tp 2),
+     its loss, gradients, new parameters and running statistics held to
+     the port's one-shard step on the CPU from the same seeded weights;
+     DEFAULT_CONFIG with every dropout 0.0, one step at 2 x 3000 samples
+     on the card held to the same step on the CPU (the loss, each
+     parameter's gradient over its norm), then 3 warm steps at 16 x 3000
+     (labels of 250-350 random bases, padded) by CUDA events, their
+     launches, device time by kernel, peak memory and bound;
+ 18. a `{"paths": [...]}` line for the torch-op paths, a
      `{"kernels": [...]}` line with each kernel's launches, error, times
      and bound, then the result line.  `ms` is the wrapper's call
      between CUDA events (warm, mean of 20), `device_ms` the kernels'
@@ -181,7 +191,9 @@ the sentinel test, 4, and the l chain, 4), over the extensions of passes
 1-3 (`search_reads(stats=)`' ext_pass*), against the bytes of the reads
 (one a base) and the SMEMs (3 int32 each).
 nn-base's bound is its convolutions' float32 operations (two a
-multiply-add) over 67e12 FLOP/s; wfa's the bytes of its backtrace
+multiply-add) over 67e12 FLOP/s, and its training step's three times
+the forward's (the forward, and the backward's input and weight
+gradients); wfa's the bytes of its backtrace
 stores and mismatch tables over 3.35 TB/s.  abea's is the larger of its
 (NB, B, 100) bands and traces (5 bytes a cell, written once) with its
 inputs over 3.35 TB/s, and 15 float64 operations a band cell (the
@@ -2919,6 +2931,194 @@ def mesh_phase(card: str, bpm_row: dict, bsw_row: dict):
     return row, rows
 
 
+TRAIN_SAMPLES = 3000
+TRAIN_LABELS = (250, 350)         # label lengths, drawn from numpy seed 0
+TRAIN_BATCH = 16
+TRAIN_CHECK_BATCH = 2
+TRAIN_REPS = 3
+# full width, card against CPU at TRAIN_CHECK_BATCH: the loss, relative;
+# each parameter's gradient, max |diff| over the CPU gradient's norm
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+# the dryrun's all-ones step, card against CPU: tests/test_torch_train.py's
+# tolerances for that input (loss relative, gradient over its norm,
+# running statistics absolute; parameters within 1e-5 where |g| exceeds
+# the gradient tolerance times the norm, elsewhere within 2 lr)
+DRYRUN_TOL = dict(loss=1e-5, grad=2e-3, stats=1e-4, param=1e-5)
+
+
+def train_batch(B: int, seed: int):
+    """B seeded standard-normal chunks (B, 1, TRAIN_SAMPLES) and labels of
+    random bases 1-4 (numpy seed 0) of lengths TRAIN_LABELS, padded."""
+    import numpy as np
+    import torch
+    x = np.random.default_rng(seed).standard_normal(
+        (B, 1, TRAIN_SAMPLES)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(TRAIN_LABELS[0], TRAIN_LABELS[1] + 1, B)
+    L = TRAIN_LABELS[1]
+    pad = (np.arange(L)[None] >= lens[:, None]).astype(np.float32)
+    lab = np.where(pad > 0, 0, rng.integers(1, 5, (B, L)))
+    return torch.from_numpy(x), torch.from_numpy(lab), torch.from_numpy(pad)
+
+
+def step_errors(got, want, grad_tol: float) -> dict:
+    """Two `step_from_state` results (loss, state, gradients) apart: the
+    loss (relative), the gradients (max |diff| over the norm of `want`'s),
+    the parameters where |g| > grad_tol x the norm and elsewhere, the
+    running statistics."""
+    (lg, sg, gg), (lw, sw, gw) = got, want
+    err = dict(loss=abs(lg - lw) / abs(lw), grad=max(
+        float((gg[k] - gw[k]).abs().max() / gw[k].norm()) for k in gw),
+        param=0.0, param_rest=0.0, stats=0.0)
+    for k, w in sw.items():
+        d = (sg[k] - w).abs().float()
+        if k.endswith(("running_mean", "running_var")):
+            err["stats"] = max(err["stats"], float(d.max()))
+        elif k in gw:
+            sure = gw[k].abs() > grad_tol * gw[k].norm()
+            for key, m in (("param", sure), ("param_rest", ~sure)):
+                if m.any():
+                    err[key] = max(err[key], float(d[m].max()))
+    return err
+
+
+def train_phase(card: str) -> dict:
+    """The nn-base training step (`nn/train.py`; no hand kernel: cuDNN
+    convolutions, torch's CTC and AdamW), with cuDNN's TF32 off: (a)
+    `dryrun_multichip(2)` on two shards of the one card (tp 2), its loss,
+    gradients, new parameters and running statistics held to the port's
+    one-shard step on the CPU from the same seeded weights; (b)
+    DEFAULT_CONFIG with every dropout 0.0 (the JAX step takes no dropout
+    RNG), one step at TRAIN_CHECK_BATCH x TRAIN_SAMPLES on the card held
+    to the same step on the CPU; (c) TRAIN_REPS warm steps at TRAIN_BATCH
+    x TRAIN_SAMPLES by CUDA events, their launches (one step under
+    torch.profiler), peak memory and bound (three times the forward's
+    convolution FLOPs over the fp32 peak)."""
+    import copy
+    import numpy as np
+    import torch
+    from genarchbench_tpu_torch.entry import dryrun_multichip
+    from genarchbench_tpu_torch.nn import basecall as bc
+    from genarchbench_tpu_torch.nn import train
+
+    phase_t0 = time.perf_counter()
+    card0 = torch.device("cuda", 0)
+
+    # (a) the dryrun on (cuda:0, cuda:0), against the CPU
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, devices=(card0, card0))
+    dry_s = time.perf_counter() - t0
+    cpu = train.step_from_state(res["config"], res["initial"], *res["batch"],
+                                device="cpu")
+    dry = step_errors((res["loss"], res["state"], res["grads"]), cpu,
+                      DRYRUN_TOL["grad"])
+    if not (dry["loss"] <= DRYRUN_TOL["loss"]
+            and dry["grad"] <= DRYRUN_TOL["grad"]
+            and dry["param"] <= DRYRUN_TOL["param"]
+            and dry["param_rest"] <= 2 * train.LR + 1e-6
+            and dry["stats"] <= DRYRUN_TOL["stats"]):
+        fail(f"train: the dryrun's step on two shards of the card against "
+             f"the CPU: {dry} (limits {DRYRUN_TOL}, 2 lr elsewhere)")
+    print(f"train dryrun (2 shards of the card, tp 2): loss {res['loss']:.6f} "
+          f"in {dry_s:.2f} s; against the CPU's one-shard step: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in dry.items()))
+
+    # (b) full width: the card against the CPU at TRAIN_CHECK_BATCH
+    cfg = copy.deepcopy(bc.DEFAULT_CONFIG)
+    for layer in cfg["block"]:
+        layer["dropout"] = 0.0
+    state = bc.Basecaller.init(cfg, seed=0, device="cpu").model.state_dict()
+    small = train_batch(TRAIN_CHECK_BATCH, 112)
+    t0 = time.perf_counter()
+    on_card = train.step_from_state(cfg, state, *small, device=card0)
+    cpu_t0 = time.perf_counter()
+    on_cpu = train.step_from_state(cfg, state, *small, device="cpu")
+    cpu_s = time.perf_counter() - cpu_t0
+    full = step_errors(on_card, on_cpu, TRAIN_GRAD_TOL)
+    if not (np.isfinite(on_card[0]) and full["loss"] <= TRAIN_LOSS_TOL
+            and full["grad"] <= TRAIN_GRAD_TOL):
+        fail(f"train at DEFAULT_CONFIG, {TRAIN_CHECK_BATCH} x "
+             f"{TRAIN_SAMPLES}: card against CPU {full} (limits loss "
+             f"{TRAIN_LOSS_TOL}, gradients {TRAIN_GRAD_TOL})")
+    print(f"train DEFAULT_CONFIG (dropout 0.0) {TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_SAMPLES}: loss {on_card[0]:.4f} card, {on_cpu[0]:.4f} CPU "
+          f"({cpu_s:.2f} s); loss rel {full['loss']:.3g}, gradients "
+          f"{full['grad']:.3g} of the norm, parameters "
+          f"{full['param']:.3g} / {full['param_rest']:.3g}, running "
+          f"statistics {full['stats']:.3g}; both steps "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # (c) TRAIN_BATCH x TRAIN_SAMPLES on the card, timed
+    model = bc.BasecallModel(cfg)
+    model.load_state_dict(state)
+    model.to(card0)
+    opt = train.adamw(model.parameters())
+    x, lab, pad = (t.to(card0) for t in train_batch(TRAIN_BATCH, 113))
+    train.train_step(model, opt, x, lab, pad)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = [train.train_step(model, opt, x, lab, pad)
+              for _ in range(TRAIN_REPS)]
+    stop.record()
+    stop.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+    ms = start.elapsed_time(stop) / TRAIN_REPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        fail(f"train at {TRAIN_BATCH} x {TRAIN_SAMPLES}: losses {losses}")
+
+    def one_step():
+        with torch.autograd.profiler.record_function("nn.train_step"):
+            train.train_step(model, opt, x, lab, pad)
+
+    prof, prof_ms = profiled(one_step)
+    launches = launches_in_spans(prof, "nn.train_step")
+    device = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith("nn."):
+            c = device.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    device_ms = sum(us for _, us in device.values()) / 1e3
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:8]
+    model.eval()
+    flops = conv_flops(model, x)
+    bound = 3 * flops / PEAK_FP32_FLOPS * 1e3
+    samples = TRAIN_BATCH * TRAIN_SAMPLES
+    phase_s = time.perf_counter() - phase_t0
+    print(f"train DEFAULT_CONFIG {TRAIN_BATCH} x {TRAIN_SAMPLES}: "
+          f"{ms:.3f} ms a step (CUDA events, mean of {TRAIN_REPS} warm "
+          f"steps; host clock {wall_ms:.1f}), {samples / (ms / 1e3):.4g} "
+          f"samples/s, losses {', '.join(f'{v:.4f}' for v in losses)}; "
+          f"{launches} launches a step ({prof_ms:.1f} ms profiled); peak "
+          f"{peak_gb:.3f} GB; bound {bound:.3f} ms (3 x {flops:,} "
+          f"convolution FLOPs over {PEAK_FP32_FLOPS:.3g}/s); phase "
+          f"{phase_s:.1f} s ({card})")
+    print(f"train profiled step: {device_ms:.1f} ms of device activity, "
+          f"{device_ms / prof_ms:.1%} of {prof_ms:.1f} ms; top by time:")
+    for name, (c, us) in top:
+        print(f"  {us / 1e3:9.2f} ms {c:6d} x {us / c:8.2f} us  {name[:90]}")
+    return dict(name="nn-base-train", route="torch ops (cuDNN, CTC, AdamW)",
+                ms=ms, wall_ms=wall_ms, samples=samples,
+                samples_per_s=samples / (ms / 1e3), launches=launches,
+                profiled_ms=prof_ms, device_ms=device_ms,
+                device_busy_share=device_ms / prof_ms,
+                top=[(n[:90], c, us / 1e3) for n, (c, us) in top],
+                peak_gb=peak_gb, flops=3 * flops, bound_ms=bound,
+                bound_by="operations", tf32=False, dropout=0.0,
+                dryrun=dict(loss=res["loss"], mesh=res["mesh"], s=dry_s,
+                            errors=dry),
+                card_vs_cpu=full, cpu_step_s=cpu_s, phase_s=phase_s,
+                card=card)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2962,7 +3162,7 @@ def main() -> int:
               abea_phase(card), poa_phase(card), kmer_phase(card),
               dbg_phase(card), pileup_phase(card), variant_phase(card)]
     row, mesh_rows = mesh_phase(card, rows[0], rows[1])
-    paths.append(row)
+    paths += [row, train_phase(card)]
     rows += mesh_rows
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": rows}))

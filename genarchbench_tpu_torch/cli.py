@@ -150,14 +150,13 @@ def cmd_regress(name: str, cmd_args: List[str], golden: Optional[str],
                 (r.stage_dir / f).read_text()
                 for f in ("stderr.txt", "stdout.txt")
                 if (r.stage_dir / f).exists())
-        # the timing line anywhere in a line (bpm's begins "=> "); its
-        # time is the line's last number (bsw's reads "cycles = 0, t s")
+        # the timing line anywhere in a line (bpm's begins "=> "); the
+        # time as the spec reads it (`KernelSpec.read_time`)
         timing = next((ln for ln in alltext.splitlines()
                        if spec.timing_line in ln), "").strip()
-        nums = re.findall(r"[0-9]+(?:\.[0-9]+)?(?:[eE][+-]?\d+)?",
-                          timing.split(spec.timing_line, 1)[-1])
-        if timing and nums:
-            kernel_s[nd] = float(nums[-1])
+        t = spec.read_time(alltext)
+        if t is not None:
+            kernel_s[nd] = t
         if spec.items_re:
             mi = re.search(spec.items_re, alltext)
             if mi:

@@ -8,14 +8,19 @@ What differs from JAX: a spec may name the lines of the kernel's output
 that its golden check compares (`output_lines`, bsw's `score=` lines on
 stderr, where JAX bound that filter to the dataset table only), so that
 `regress` applies it whether the command came from the table or the
-command line.
+command line; and a spec may say where its time is (`time_re`), for
+bsw, whose timing line reads "cycles = 0, t s", and nn-base, whose
+timing line is a rate (JAX reads samples/s as seconds there).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import re
 from typing import Callable, Dict, List, Optional
+
+_NUMBER = r"[0-9]+(?:\.[0-9]+)?(?:[eE][+-]?\d+)?"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +37,25 @@ class KernelSpec:
     # the lines of the kernel's output that a golden check compares
     # (the reference regression's grep before its diff); None: all
     output_lines: Optional[Callable[[List[str]], List[str]]] = None
+    # optional regex whose first group is the run's time in seconds in
+    # the kernel's output, where the first number after `timing_line`
+    # is not it
+    time_re: Optional[str] = None
+
+    def read_time(self, text: str) -> Optional[float]:
+        """The run's seconds in the kernel's output `text`: `time_re`'s
+        first group, else the first number after the timing-line prefix
+        on the first line holding it (found anywhere in the line: bpm's
+        begins "=> "), as in JAX; None when there is none."""
+        if self.time_re:
+            m = re.search(self.time_re, text)
+        else:
+            line = next((ln for ln in text.splitlines()
+                         if self.timing_line in ln), "")
+            m = re.search(f"({_NUMBER})",
+                          line.split(self.timing_line, 1)[-1]) if line \
+                else None
+        return float(m.group(1)) if m else None
 
 
 def _score_lines(lines: List[str]) -> List[str]:
@@ -58,7 +82,8 @@ for _spec in (
                "Time.Benchmark"),
     KernelSpec("bsw", "genarchbench_tpu_torch.kernels.bsw",
                "banded affine-gap Smith-Waterman (BWA-MEM2 extension)",
-               "exact", "Overall SW cycles", output_lines=_score_lines),
+               "exact", "Overall SW cycles", output_lines=_score_lines,
+               time_re=rf"Overall SW cycles = \d+, ({_NUMBER})"),
     KernelSpec("chain", "genarchbench_tpu_torch.kernels.chain",
                "minimap2 anchor chaining DP (exact, with skip heuristics)",
                "exact", "Time in kernel:"),
@@ -84,7 +109,8 @@ for _spec in (
                "Kernel runtime:"),
     KernelSpec("nn-base", "genarchbench_tpu_torch.nn.basecall",
                "QuartzNet-CTC nanopore basecalling (Bonito)", "exact",
-               "> samples per second"),
+               "> samples per second",
+               time_re=rf"> duration: ({_NUMBER})s"),
     KernelSpec("nn-variant", "genarchbench_tpu_torch.nn.variant",
                "Clair3 pileup + full-alignment variant calling", "sorted",
                "VariantCalling execution time:"),

@@ -24,7 +24,7 @@ import math
 import os
 import sys
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,10 +93,58 @@ class TCSConv(nn.Module):
         return self.conv(x)
 
 
+class BatchNorm(nn.BatchNorm1d):
+    """bonito's BatchNorm1d (eps 1e-3, bonito's state-dict names) with
+    flax's training rule, the JAX model's: in `train()` mode the batch's
+    mean and its biased variance max(0, E[x^2] - E[x]^2) over batch and
+    time (flax's `use_fast_variance`, not torch's two-pass variance)
+    normalize x, and the running statistics take that biased variance
+    with momentum 0.1 (flax's 0.9), where torch's own BatchNorm takes
+    the unbiased one.  `eval()` is torch's BatchNorm1d."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-3)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return self.forward_shards([x], [slice(None)])[0]
+
+    def forward_shards(self, xs: Sequence[torch.Tensor],
+                       blocks: Sequence[slice],
+                       reduce: Optional[Callable] = None
+                       ) -> List[torch.Tensor]:
+        """Train mode over shards: xs[i] holds channels blocks[i] of this
+        layer for some of the batch's rows and frames.  `reduce` maps a
+        list of per-shard tensors to the list of their sums over the
+        shards that hold the same channels, so that the statistics are
+        the global batch's (None: each shard holds the whole batch)."""
+        sums = [[x.sum((0, 2)) for x in xs], [(x * x).sum((0, 2)) for x in xs],
+                [x.new_tensor(x.shape[0] * x.shape[2]) for x in xs]]
+        if reduce is not None:
+            sums = [reduce(v) for v in sums]
+        out, seen = [], set()
+        for x, b, s1, s2, n in zip(xs, blocks, *sums):
+            mean = s1 / n
+            var = torch.clamp_min(s2 / n - mean * mean, 0.0)
+            scale = torch.rsqrt(var + self.eps) * self.weight[b].to(x.device)
+            out.append((x - mean[:, None]) * scale[:, None]
+                       + self.bias[b].to(x.device)[:, None])
+            if (b.start, b.stop) not in seen:
+                seen.add((b.start, b.stop))
+                with torch.no_grad():
+                    for buf, v in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                        buf[b] = (1 - self.momentum) * buf[b] \
+                            + self.momentum * v.to(buf.device)
+        return out
+
+
 class Block(nn.Module):
     """TCSConv + BatchNorm + activation (+ residual) (basecall.py:182-253).
     `conv` is bonito's flat list, [TCS, BN, act, dropout] * (repeat-1) +
-    [TCS, BN]; BatchNorm eps is 1e-3."""
+    [TCS, BN]; BatchNorm eps is 1e-3, with flax's training rule
+    (`BatchNorm`)."""
 
     def __init__(self, cin: int, layer: Dict[str, Any]):
         super().__init__()
@@ -106,15 +154,14 @@ class Block(nn.Module):
         p = layer.get("dropout", 0.0)
         mods, c = [], cin
         for _ in range(layer["repeat"] - 1):
-            mods += [TCSConv(c, f, k, s, d, sep),
-                     nn.BatchNorm1d(f, eps=1e-3), Swish(), nn.Dropout(p)]
+            mods += [TCSConv(c, f, k, s, d, sep), BatchNorm(f), Swish(),
+                     nn.Dropout(p)]
             c = f
-        mods += [TCSConv(c, f, k, s, d, sep), nn.BatchNorm1d(f, eps=1e-3)]
+        mods += [TCSConv(c, f, k, s, d, sep), BatchNorm(f)]
         self.conv = nn.ModuleList(mods)
         self.use_res = layer["residual"]
         if self.use_res:
-            self.residual = nn.Sequential(TCSConv(cin, f, 1),
-                                          nn.BatchNorm1d(f, eps=1e-3))
+            self.residual = nn.Sequential(TCSConv(cin, f, 1), BatchNorm(f))
         self.activation = nn.Sequential(Swish(), nn.Dropout(p))
 
     def forward(self, x):

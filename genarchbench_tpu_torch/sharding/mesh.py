@@ -78,10 +78,12 @@ def _device_type() -> str:
     return torch.device(EnvConfig.from_env().device or "cuda").type
 
 
-def _local_devices(n: int, first: int = 0) -> Tuple[torch.device, ...]:
-    """n shard devices of GENARCH_DEVICE's type: CPU shards, or the cards
-    first .. first + n - 1, which the host must have."""
-    kind = _device_type()
+def _local_devices(n: int, first: int = 0,
+                   kind: Optional[str] = None) -> Tuple[torch.device, ...]:
+    """n shard devices of type `kind` (GENARCH_DEVICE's when None): CPU
+    shards, or the cards first .. first + n - 1, which the host must
+    have."""
+    kind = kind or _device_type()
     if kind == "cpu":
         return (torch.device("cpu"),) * n
     if kind != "cuda":
@@ -153,6 +155,62 @@ def global_data_mesh(axis_name: str = "batch") -> Optional[Mesh]:
         return data_mesh(n, axis_name)
     first = int(os.environ.get("LOCAL_RANK", "0")) * n
     return Mesh(_local_devices(n, first), axis_name, dist.get_rank(), world)
+
+
+def mesh_factors(n: int) -> Tuple[int, int, int]:
+    """n devices as (dp, sp, tp), JAX's dryrun rule: tp 2 when n is even,
+    sp 2 when n divides by 4, the rest data parallel."""
+    tp = 2 if n % 2 == 0 else 1
+    sp = 2 if n % 4 == 0 else 1
+    return n // (tp * sp), sp, tp
+
+
+GRID_AXES = ("dp", "sp", "tp")
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A (dp, sp, tp) grid over this process's devices, in JAX's
+    row-major order: shard g = d * sp * tp + s * tp + t holds the device
+    that JAX's `devices.reshape(dp, sp, tp)` puts at (d, s, t).  The
+    collectives run over the 1-D sub-`Mesh` of one or more axes
+    (`lines`), so `psum` and `all_gather` apply along dp, sp or tp
+    alone.  In one process they are copies, sums and concatenations,
+    which autograd differentiates."""
+    devices: Tuple[torch.device, ...]
+    shape: Tuple[int, int, int]
+
+    def __post_init__(self):
+        if len(self.devices) != int(np.prod(self.shape)):
+            raise ValueError(f"a {self.shape} grid needs "
+                             f"{int(np.prod(self.shape))} devices, not "
+                             f"{len(self.devices)}")
+
+    def coords(self, g: int) -> Tuple[int, int, int]:
+        return tuple(int(c) for c in np.unravel_index(g, self.shape))
+
+    def lines(self, axes: Sequence[str]) -> List[Tuple[List[int], Mesh]]:
+        """Every set of shards that differ only along `axes`, as (the
+        shards, in the order of those axes; their 1-D sub-mesh)."""
+        ax = [GRID_AXES.index(a) for a in axes]
+        rest = [i for i in range(3) if i not in ax]
+        order = np.arange(len(self.devices)).reshape(self.shape)
+        order = order.transpose(rest + ax).reshape(
+            -1, int(np.prod([self.shape[i] for i in ax])))
+        return [([int(g) for g in row],
+                 Mesh(tuple(self.devices[g] for g in row), "".join(axes)))
+                for row in order]
+
+
+def data_grid(n_devices: int, device=None,
+              devices: Optional[Sequence] = None) -> Grid:
+    """The `mesh_factors(n)` grid over `devices`, or over n local devices
+    of the resolved device's type (CPU shards, or cards the host must
+    have, as for `data_mesh`)."""
+    if devices is None:
+        devices = _local_devices(n_devices, kind=resolve_device(device).type)
+    devices = tuple(torch.device(d) for d in devices)
+    return Grid(devices, mesh_factors(n_devices))
 
 
 def mesh_size(mesh: Optional[Mesh]) -> int:

@@ -1,6 +1,9 @@
 """The PyTorch port's umbrella CLI, on the CPU (GENARCH_DEVICE=cpu)."""
 
+import ast
+import importlib.util
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -213,6 +216,36 @@ def test_regress_scaling_table(tmp_path, job_dir, capsys):
     assert "pairs/s" in line and "eff" in line
     assert get_kernel("wfa").items_re and get_kernel("fmi").items_unit == \
         "reads"
+
+
+def roi_format(module: str) -> str:
+    """The timing-line format string of the module's `ROITimer(...)`."""
+    path = pathlib.Path(importlib.util.find_spec(module).origin)
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") == \
+                "ROITimer":
+            return node.args[1].value
+    raise LookupError(f"no ROITimer in {path}")
+
+
+@pytest.mark.parametrize("name", [s.name for s in list_kernels()])
+def test_regress_reads_each_kernels_time(name):
+    """The time `regress` reads from the output each kernel's `run`
+    prints, its timing line formatted from its own ROITimer format at
+    t = 1.5 s among other numbered lines (nn-base prints no ROITimer
+    line: `nn/basecall.py::run` writes the duration and the rate).  poa's
+    line ends in 0.000 and nn-base's timing line is a rate, so a rule
+    that took the last number, or the rate, would not read 1.5."""
+    spec = get_kernel(name)
+    if name == "nn-base":
+        lines = ["> duration: 1.5s", "> samples per second 4.0E+04"]
+    else:
+        lines = [roi_format(spec.module).format(t=1.5)]
+    text = "\n".join(["Number of input pairs: 12", *lines,
+                      "numCellsComputed = 77"])
+    assert spec.timing_line in text
+    assert spec.read_time(text) == 1.5
+    assert spec.read_time("no timing line here 3.0") is None
 
 
 def test_regress_detects_mismatch(tmp_path, job_dir, capsys):

@@ -12,7 +12,7 @@ import torch
 
 from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.entry import entry
+from genarchbench_tpu_torch.entry import dryrun_multichip, entry
 from genarchbench_tpu_torch.io.chain_io import ChainRecord
 from genarchbench_tpu_torch.kernels import (abea, bpm, bsw, chain, dbg,
                                             fast_chain, fmi, kmer, pileup,
@@ -35,6 +35,7 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.cli, genarchbench_tpu_torch.kernels.bpm, "
             "genarchbench_tpu_torch.kernels.bsw, genarchbench_tpu_torch.convert, "
             "genarchbench_tpu_torch.kernels.wfa, genarchbench_tpu_torch.nn.basecall, "
+            "genarchbench_tpu_torch.nn.train, "
             "genarchbench_tpu_torch.native, genarchbench_tpu_torch.entry, "
             "genarchbench_tpu_torch.kernels.chain, "
             "genarchbench_tpu_torch.kernels.fast_chain, "
@@ -53,9 +54,8 @@ def test_import_leaves_jax_out():
             "genarchbench_tpu_torch.harness, "
             "genarchbench_tpu_torch.harness.scheduler, "
             "genarchbench_tpu_torch.harness.dataset_regress; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' "
-            "or m.startswith('jax.') or m == 'genarchbench_tpu' "
-            "or m.startswith('genarchbench_tpu.')); print(bad)")
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'optax', 'flax', 'genarchbench_tpu')); print(bad)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -74,7 +74,8 @@ def imported_modules(path):
 def test_source_imports_no_jax(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "genarchbench_tpu"), (path, mod)
+        assert top not in ("jax", "jaxlib", "optax", "flax",
+                           "genarchbench_tpu"), (path, mod)
 
 
 def test_no_card_raises(monkeypatch):
@@ -189,6 +190,7 @@ def test_public_functions_default_to_the_card(monkeypatch):
                  lambda: ssw.SswAligner(),
                  lambda: variant.realign_reads([], "ACGT", 0, 4, 0),
                  lambda: entry(),
+                 lambda: dryrun_multichip(2),
                  lambda: bsw.bsw_batch(BswPairs(
                      np.array([5], np.int32), [np.zeros(4, np.int32)],
                      [np.zeros(3, np.int32)]))):
