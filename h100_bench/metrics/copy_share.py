@@ -1,0 +1,10 @@
+"""The copies' share of a batch's wall time: the program's host-to-device
+and device-to-host seconds (the configuration's `stats.copy` keys of
+`stats=`) over the wall time of the same batch."""
+
+
+def read(run):
+    if run.stats is None:
+        return None
+    keys = run.cell.config["stats"]["copy"]
+    return 100.0 * sum(run.stats[k] for k in keys) / run.stats_wall_s
