@@ -57,7 +57,7 @@ import torch
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.blocks import run_blocks
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, span
 from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
                                                   mesh_devices, shard_items)
 
@@ -654,11 +654,11 @@ def _align(seqs: List[str], event_tables: List[np.ndarray], model,
     counts = {}
     args = (d["ranks"], d["ev_mean"], d["n_ev"], d["n_km"], d["shifts"],
             d["scales"], d["lm"], d["lsd"], d["llsd"])
-    with torch.profiler.record_function("abea.band"):
+    with span("abea.band"):
         bands, traces, blls = _band_scan(*args, *d["lps"], NB, BLOCK, graphed,
                                          counts)
     lap("band_s")
-    with torch.profiler.record_function("abea.backtrace"):
+    with span("abea.backtrace"):
         out = _backtrace(bands, traces, blls, *args, d["lps"][3], NB, NB,
                          BLOCK, graphed, counts)
     lap("backtrace_s")

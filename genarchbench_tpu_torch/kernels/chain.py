@@ -45,7 +45,7 @@ import torch.nn.functional as F
 
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, count, span
 from genarchbench_tpu_torch.io import chain_io
 from genarchbench_tpu_torch.sharding.batching import plan_batches
 from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
@@ -324,7 +324,7 @@ def _chain_dp_win_device(planes: torch.Tensor, n: torch.Tensor, p: _Params,
     SP = torch.zeros((2, B, N + W), dtype=i32, device=dev)  # scores, peaks
     PP = torch.full((B, N + W), -1, dtype=i64, device=dev)  # padded parent
     jidx = torch.arange(W, dtype=i64, device=dev)
-    with torch.profiler.record_function("chain.loop"):
+    with span("chain.loop"):
         for i in range(steps):
             a, w = W + i, slice(i, i + W)
             maxf, pk, pidx = _anchor_step(
@@ -341,19 +341,20 @@ def _chain_dp_win_device(planes: torch.Tensor, n: torch.Tensor, p: _Params,
 def run_plan(plan: ChainPlan, dev: torch.device,
              lap: Optional[Laps] = None) -> np.ndarray:
     """Copy one plan to `dev`, run the kernel and return (3, B, N) int32
-    scores, parents, peaks.  `lap` marks the copies to the device, the
-    anchor loop and the copy back as h2d_s, loop_s and d2h_s."""
-    lap = lap or Laps(None, dev)
-    planes = torch.from_numpy(plan.planes).to(dev)
-    n = torch.from_numpy(plan.n).to(dev)
-    p = _Params(plan, dev)
-    lap("h2d_s")
-    steps = int(plan.n.max())
-    out = _chain_dp_win_device(planes, n, p, plan.W, steps)
-    lap("loop_s")
-    res = torch.stack(out).cpu().numpy()
-    lap("d2h_s")
-    return res
+    scores, parents, peaks, in the spans `chain.h2d`, `chain.dp`,
+    `chain.wait` (the card's queue drained, on CUDA) and `chain.d2h`;
+    `lap` marks them as h2d_s, loop_s, loop_s and d2h_s."""
+    with span("chain.h2d", lap, "h2d_s"):
+        planes = torch.from_numpy(plan.planes).to(dev)
+        n = torch.from_numpy(plan.n).to(dev)
+        p = _Params(plan, dev)
+    with span("chain.dp", lap, "loop_s"):
+        out = _chain_dp_win_device(planes, n, p, plan.W, int(plan.n.max()))
+    with span("chain.wait", lap, "loop_s"):
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    with span("chain.d2h", lap, "d2h_s"):
+        return torch.stack(out).cpu().numpy()
 
 
 def scalar_dp(recs: Sequence[chain_io.ChainRecord],
@@ -383,47 +384,61 @@ def chain_batch(records: Sequence[chain_io.ChainRecord],
     padded cells, each run by the windowed kernel; the records
     `gap_corrections` defers run the scalar C DP.  With a mesh, each
     plan's records split over its devices (`shard_items`), one plan of
-    its own on each.  `stats`, when a dict, is filled with the plans,
-    their (W, N) window widths and padded lengths, the anchor steps and
-    deferred records of the run and the seconds of host preparation,
-    copies, anchor loops and scalar DP (the first device synchronized at
-    each boundary)."""
-    devs = mesh_devices(mesh, device)
-    counts = dict(plans=0, widths=[], steps=0)
-    if stats is not None:
-        stats.update(prep_s=0.0, h2d_s=0.0, loop_s=0.0, d2h_s=0.0,
-                     scalar_s=0.0)
-    lap = Laps(stats, devs[0])
-    results: List[tuple] = [None] * len(records)
-    ws_all = chain_io.window_starts_all(records, MAX_ITER)
-    deferred: Dict[int, None] = {}     # ordered, once each
-    plans = plan_batches([r.n for r in records], CELL_BUDGET, MAX_BATCH)
-    for plan in plans:
-        for dev, part in zip(devs, shard_items(np.asarray(plan.indices),
-                                               mesh)):
-            recs = [records[k] for k in part]
-            host = plan_inputs(recs, [ws_all[k] for k in part],
-                               plan.length)
-            deferred.update((int(part[b]), None)
-                            for b in np.flatnonzero(host.over))
-            counts["plans"] += 1
-            counts["widths"].append((host.W, plan.length))
-            counts["steps"] += int(host.n.max())
-            lap("prep_s")
+    its own on each.
+
+    The call is the span `chain.batch`, tiled by `chain.starts` (window
+    starts), `chain.plan` (the plans, then each plan's inputs),
+    `run_plan`'s spans, `chain.unpack` (each plan's results) and
+    `chain.scalar` (the deferred records), closed by the counts
+    `chain.records`, `.plans` and `.deferred`.  `stats`, when a dict,
+    is filled with the plans, their (W, N) window widths and padded
+    lengths, the anchor steps and deferred records of the run and the
+    seconds of host preparation, copies, anchor loops and scalar DP:
+    the spans' own, the first device synchronized at each span's end."""
+    with span("chain.batch"):
+        devs = mesh_devices(mesh, device)
+        counts = dict(plans=0, widths=[], steps=0)
+        if stats is not None:
+            stats.update(prep_s=0.0, h2d_s=0.0, loop_s=0.0, d2h_s=0.0,
+                         scalar_s=0.0)
+        lap = Laps(stats, devs[0])
+        results: List[tuple] = [None] * len(records)
+        with span("chain.starts", lap, "prep_s"):
+            ws_all = chain_io.window_starts_all(records, MAX_ITER)
+        with span("chain.plan", lap, "prep_s"):
+            parts = [(plan.length, dev, part) for plan in plan_batches(
+                [r.n for r in records], CELL_BUDGET, MAX_BATCH)
+                for dev, part in zip(devs, shard_items(
+                    np.asarray(plan.indices), mesh))]
+        deferred: Dict[int, None] = {}     # ordered, once each
+        for length, dev, part in parts:
+            with span("chain.plan", lap, "prep_s"):
+                host = plan_inputs([records[k] for k in part],
+                                   [ws_all[k] for k in part], length)
+                deferred.update((int(part[b]), None)
+                                for b in np.flatnonzero(host.over))
+                counts["plans"] += 1
+                counts["widths"].append((host.W, length))
+                counts["steps"] += int(host.n.max())
             with device_scope(dev):
                 out = run_plan(host, dev, lap)
-            for b, k in enumerate(part):
-                if not host.over[b]:
-                    results[k] = tuple(out[:, b, :records[k].n])
-    lap("prep_s")
-    deferred = list(deferred)
-    sub = scalar_dp([records[k] for k in deferred],
-                    [ws_all[k] for k in deferred])
-    for k, res in zip(deferred, sub):
-        results[k] = res
-    lap("scalar_s")
+            with span("chain.unpack", lap, "prep_s"):
+                for b, k in enumerate(part):
+                    if not host.over[b]:
+                        results[k] = tuple(out[:, b, :records[k].n])
+        with span("chain.scalar", lap, "scalar_s"):
+            deferred = list(deferred)
+            sub = scalar_dp([records[k] for k in deferred],
+                            [ws_all[k] for k in deferred])
+            for k, res in zip(deferred, sub):
+                results[k] = res
+        counts["deferred"] = len(deferred)
+        for name, n in (("records", len(records)),
+                        ("plans", counts["plans"]),
+                        ("deferred", counts["deferred"])):
+            count(f"chain.{name}", n)
     if stats is not None:
-        stats.update(counts, deferred=len(deferred))
+        stats.update(counts)
     return results
 
 

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import ROITimer
+from genarchbench_tpu_torch.core.roi import ROITimer, span
 from genarchbench_tpu_torch.io.bam_io import FQCFAIL, parse_region, read_bam
 
 KMER = 15
@@ -111,7 +111,7 @@ def _window_min_mask(seqs: List[str], quals: List[np.ndarray], *,
     if not seqs:
         return [], [], []
     isn, q, codes, lens = _mask_inputs(seqs, quals)
-    with torch.profiler.record_function("dbg.mask"):
+    with span("dbg.mask"):
         ok = _admissible_device(torch.from_numpy(isn).to(dev),
                                 torch.from_numpy(q).to(dev),
                                 torch.from_numpy(lens).to(dev), KMER)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, count, span
 from genarchbench_tpu_torch.io import chain_io
 from genarchbench_tpu_torch.kernels.chain import (MAX_ITER, NEG, _log2_floor,
                                                   pad_planes)
@@ -77,17 +77,17 @@ def far_chunks(st: np.ndarray, steps: int) -> List[int]:
     return out
 
 
-def _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg, steps: int,
+def _fast_chain_device(x_lo, qi, q_span, st, mdxy, bw, avg, steps: int,
                        chunks: Sequence[int], lap: Optional[Laps] = None):
     """Tile-structured fast-chain DP over (B, N) int32 planes x_lo (the
-    uint32 bits), qi, span and st (st = i and span = 0 past a row's n);
-    mdxy = min(max_dist_x, max_dist_y), bw (B,) int32 and avg (B,)
+    uint32 bits), qi, q_span and st (st = i and q_span = 0 past a row's
+    n); mdxy = min(max_dist_x, max_dist_y), bw (B,) int32 and avg (B,)
     float32.  Runs the tiles that hold the first `steps` anchors, tile t
     with chunks[t] far chunks.  Returns (scores, parents) (B, N) int32.
-    `lap` marks each far and near pass as far_s and near_s."""
+    Each far and near pass is a span, `fast_chain.far` and
+    `fast_chain.near`, which `lap` marks as far_s and near_s."""
     B, N = x_lo.shape
     dev = x_lo.device
-    lap = lap or Laps(None, dev)
     T = CH = min(TILE, N)
     c001 = torch.tensor(0.01, dtype=f32, device=dev)
     mdxy, bw, avg = (a[:, None, None] for a in (mdxy, bw, avg))
@@ -111,11 +111,11 @@ def _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg, steps: int,
 
     for t, t0 in enumerate(range(0, steps, T)):
         tile = slice(t0, t0 + T)
-        ri_t, qi_t, span_t, st_t = (a[:, tile] for a in (x_lo, qi, span, st))
+        ri_t, qi_t, span_t, st_t = (a[:, tile] for a in (x_lo, qi, q_span, st))
         sc_t, pa_t = scores[:, tile], parents[:, tile]
         farf = torch.full((B, T), NEG, dtype=i32, device=dev)
         farj = torch.full((B, T), -1, dtype=i32, device=dev)
-        with torch.profiler.record_function("fast_chain.far"):
+        with span("fast_chain.far", lap, "far_s"):
             for c in range(chunks[t]):
                 c0 = t0 - (c + 1) * CH
                 js = c0 + lane
@@ -130,9 +130,8 @@ def _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg, steps: int,
                 upd = cm > farf       # descending chunks: ties keep larger j
                 farf = torch.where(upd, cm, farf)
                 farj = torch.where(upd, jsel, farj)
-        lap("far_s")
         js_t = t0 + lane
-        with torch.profiler.record_function("fast_chain.near"):
+        with span("fast_chain.near", lap, "near_s"):
             for l in range(min(T, steps - t0)):
                 sti = st_t[:, l, None]
                 spi = span_t[:, l]
@@ -148,7 +147,6 @@ def _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg, steps: int,
                 sc_t[:, l] = torch.where(good, cand, spi)
                 pa_t[:, l] = torch.where(
                     good, torch.where(nwin, nearj, farj[:, l]), -1)
-        lap("near_s")
     return scores, parents
 
 
@@ -160,56 +158,72 @@ def fast_chain_batch(records: Sequence[chain_io.ChainRecord],
 
     Records go into plans of at most MAX_BATCH records and CELL_BUDGET
     padded cells; with a mesh, each plan's records split over its
-    devices (`shard_items`).  `stats`, when a dict, is filled with the
-    plans, tiles, far chunks and near steps of the run and the seconds
-    of host preparation, copies, far and near passes (the first device
-    synchronized at each boundary)."""
-    devs = mesh_devices(mesh, device)
-    counts = dict(plans=0, tiles=0, far_chunks=0, near_steps=0)
-    if stats is not None:
-        stats.update(prep_s=0.0, h2d_s=0.0, far_s=0.0, near_s=0.0,
-                     d2h_s=0.0)
-    lap = Laps(stats, devs[0])
-    results: List[tuple] = [None] * len(records)
-    ws_all = chain_io.window_starts_all(records, MAX_ITER)
-    plans = plan_batches([r.n for r in records], CELL_BUDGET, MAX_BATCH)
-    for plan in plans:
-        for dev, part in zip(devs, shard_items(np.asarray(plan.indices),
-                                               mesh)):
+    devices (`shard_items`).  The call is the span `fast_chain.batch`,
+    tiled by `fast_chain.starts` (window starts), `fast_chain.plan`
+    (the plans, then each plan's inputs) and each plan's
+    `fast_chain.h2d`, `.dp` (the far and near passes), `.wait` (the
+    card's queue drained, on CUDA), `.d2h` and `.unpack` (its results),
+    closed by the count `fast_chain.plans`.  `stats`, when a dict, is
+    filled with the plans, tiles, far chunks and near steps of the run
+    and the seconds of host preparation, copies, far and near passes:
+    the spans' own, the first device synchronized at each span's end."""
+    with span("fast_chain.batch"):
+        devs = mesh_devices(mesh, device)
+        counts = dict(plans=0, tiles=0, far_chunks=0, near_steps=0)
+        if stats is not None:
+            stats.update(prep_s=0.0, h2d_s=0.0, far_s=0.0, near_s=0.0,
+                         d2h_s=0.0)
+        lap = Laps(stats, devs[0])
+        results: List[tuple] = [None] * len(records)
+        with span("fast_chain.starts", lap, "prep_s"):
+            ws_all = chain_io.window_starts_all(records, MAX_ITER)
+        with span("fast_chain.plan", lap, "prep_s"):
+            parts = [(plan.length, dev, part) for plan in plan_batches(
+                [r.n for r in records], CELL_BUDGET, MAX_BATCH)
+                for dev, part in zip(devs, shard_items(
+                    np.asarray(plan.indices), mesh))]
+        for length, dev, part in parts:
             with device_scope(dev):
-                _fast_chain_plan([records[k] for k in part], part, ws_all,
-                                 plan.length, dev, lap, counts, results)
+                _fast_chain_plan(records, part, ws_all, length, dev, lap,
+                                 counts, results)
+        count("fast_chain.plans", counts["plans"])
     if stats is not None:
         stats.update(counts)
     return results
 
 
-def _fast_chain_plan(recs, idxs, ws_all, length, dev, lap, counts,
+def _fast_chain_plan(records, idxs, ws_all, length, dev, lap, counts,
                      results) -> None:
-    """One plan of records recs (indices idxs) on dev, their results
+    """One plan of the records at indices idxs on dev, their results
     written into `results`."""
-    n = np.array([r.n for r in recs], np.int32)
-    planes = pad_planes(recs, [ws_all[k] for k in idxs], n, length)
-    steps = int(n.max())
-    chunks = far_chunks(planes[4], steps)
-    counts["plans"] += 1
-    counts["tiles"] += len(chunks)
-    counts["far_chunks"] += sum(chunks)
-    counts["near_steps"] += steps
-    lap("prep_s")
-    x_lo, qi, span, _, st = torch.from_numpy(planes).to(dev)
-    params = (([min(r.max_dist_x, r.max_dist_y) for r in recs], np.int32),
-              ([r.bw for r in recs], np.int32),
-              ([r.avg_qspan for r in recs], np.float32))
-    mdxy, bw, avg = (torch.from_numpy(np.array(v, dt)).to(dev)
-                     for v, dt in params)
-    lap("h2d_s")
-    scores, parents = _fast_chain_device(x_lo, qi, span, st, mdxy, bw, avg,
-                                         steps, chunks, lap)
-    out = torch.stack([scores, parents]).cpu().numpy()
-    lap("d2h_s")
-    for b, k in enumerate(idxs):
-        results[k] = (out[0, b, :n[b]], out[1, b, :n[b]], None)
+    with span("fast_chain.plan", lap, "prep_s"):
+        recs = [records[k] for k in idxs]
+        n = np.array([r.n for r in recs], np.int32)
+        planes = pad_planes(recs, [ws_all[k] for k in idxs], n, length)
+        steps = int(n.max())
+        chunks = far_chunks(planes[4], steps)
+        for name, v in (("plans", 1), ("tiles", len(chunks)),
+                        ("far_chunks", sum(chunks)), ("near_steps", steps)):
+            counts[name] += v
+    with span("fast_chain.h2d", lap, "h2d_s"):
+        x_lo, qi, q_span, _, st = torch.from_numpy(planes).to(dev)
+        params = (([min(r.max_dist_x, r.max_dist_y) for r in recs],
+                   np.int32),
+                  ([r.bw for r in recs], np.int32),
+                  ([r.avg_qspan for r in recs], np.float32))
+        mdxy, bw, avg = (torch.from_numpy(np.array(v, dt)).to(dev)
+                         for v, dt in params)
+    with span("fast_chain.dp"):
+        scores, parents = _fast_chain_device(x_lo, qi, q_span, st, mdxy, bw,
+                                             avg, steps, chunks, lap)
+    with span("fast_chain.wait", lap, "near_s"):
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    with span("fast_chain.d2h", lap, "d2h_s"):
+        out = torch.stack([scores, parents]).cpu().numpy()
+    with span("fast_chain.unpack", lap, "prep_s"):
+        for b, k in enumerate(idxs):
+            results[k] = (out[0, b, :n[b]], out[1, b, :n[b]], None)
 
 
 def run(argv: Sequence[str]) -> int:

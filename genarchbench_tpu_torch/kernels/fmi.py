@@ -60,7 +60,7 @@ import torch.nn.functional as F
 
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, span
 from genarchbench_tpu_torch.sharding.mesh import (Exchange, Mesh, all_gather,
                                                   data_mesh, device_scope,
                                                   psum_scatter, run_threads,
@@ -994,7 +994,7 @@ def search_reads(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
     lap("h2d_s")
 
     step = lanes_per_chunk(dev, READ_LANE_BYTES)
-    with torch.profiler.record_function("fmi.restart"):
+    with span("fmi.restart"):
         parts = []
         for i in range(0, n, step):
             ridx, x0, nend = fmi.restart_items(
@@ -1004,7 +1004,7 @@ def search_reads(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
         ridx, x0, nend = (torch.cat(p) for p in zip(*parts))
     lap("restart_s")
 
-    with torch.profiler.record_function("fmi.pass1"):
+    with span("fmi.pass1"):
         ib, m1, n1, sp1 = fmi.onepos_items(
             qdb_t, qoff_t[ridx], qlen_t[ridx], x0, torch.ones_like(x0),
             nend - x0 + 1, min_seed, stats=stats, tag="pass1")
@@ -1013,7 +1013,7 @@ def search_reads(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
 
     # pass 2: filter + reseed (fmi.cpp:301-324), one item per kept SMEM,
     # fwd length unknown (bounded by the read)
-    with torch.profiler.record_function("fmi.pass2"):
+    with span("fmi.pass2"):
         keep = (((n1 + 1 - m1) >= split_len) & (sp1 <= SPLIT_WIDTH)
                 ).nonzero().squeeze(1)
         rr = r1[keep]
@@ -1028,7 +1028,7 @@ def search_reads(fmi: FMISearch, reads: List[np.ndarray], batch_size: int,
             m2 = n2 = torch.zeros(0, dtype=i32, device=dev)
     lap("pass2_s")
 
-    with torch.profiler.record_function("fmi.pass3"):
+    with span("fmi.pass3"):
         parts = []
         for i in range(0, n, step):
             rid = torch.arange(i, min(i + step, n), dtype=i64, device=dev)

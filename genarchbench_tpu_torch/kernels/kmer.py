@@ -56,7 +56,7 @@ import torch
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.config import load_kv_config
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, span
 from genarchbench_tpu_torch.io.fasta_io import ReadSet, read_fasta
 from genarchbench_tpu_torch.sharding.batching import next_pow2
 from genarchbench_tpu_torch.sharding.mesh import (Mesh, all_to_all,
@@ -164,12 +164,12 @@ def count_distinct(reads: ReadSet, k: int, batch_bases: int = 1 << 25, *,
         seqs_d = torch.from_numpy(arr).to(dev)
         lens_d = torch.from_numpy(lens).to(dev)
         laps("h2d_s")
-        with torch.profiler.record_function("kmer.codes"):
+        with span("kmer.codes"):
             parts.append(_codes_device(seqs_d, lens_d, k).reshape(-1))
         laps("codes_s")
     if not parts:
         return 0
-    with torch.profiler.record_function("kmer.count"):
+    with span("kmer.count"):
         codes = torch.cat(parts) if len(parts) > 1 else parts[0]
         total = int(_distinct_count_device(codes))
     laps("count_s")

@@ -41,7 +41,7 @@ import torch
 
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, span
 from genarchbench_tpu_torch.io.bam_io import (
     BamRecord, FDUP, FQCFAIL, FSECONDARY, FSUPPL, FUNMAP, NT16_TABLE,
     parse_region, read_bam)
@@ -273,7 +273,7 @@ def _assemble_pileup(covarr, present, ev_p, ev_j, ev_f, start, end,
     p_d = torch.from_numpy(np.ascontiguousarray(ev_p, np.int32)).to(device)
     jf_d = torch.from_numpy(ev_jf).to(device)
     laps("h2d_s")
-    with torch.profiler.record_function("pileup.scatter"):
+    with span("pileup.scatter"):
         mat = _scatter_counts(colof_d, p_d, jf_d, ncols)
     laps("scatter_s")
     return (majors, minors,

@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.blocks import run_blocks
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, span
 from genarchbench_tpu_torch.sharding.batching import next_pow2
 
 NEG = -(1 << 28)         # kNegativeInfinity stand-in (int32-safe)
@@ -852,12 +852,12 @@ class ConvexNWEngine:
              for a in (node_ch, seq, preds, npred, H0, F0, O0, endmask, Wlen)]
         lap("h2d_s")
         counts = {}
-        with torch.profiler.record_function("poa.dp"):
+        with span("poa.dp"):
             planes, start = _convex_dp_rows(*t, Rmax, pen, BLOCK, graphed,
                                             counts)
         lap("dp_s")
         maxstep = Rmax + W1 + 4
-        with torch.profiler.record_function("poa.walk"):
+        with span("poa.walk"):
             outi, outj = _poa_walk(planes, start, t[-1], maxstep, BLOCK,
                                    graphed, counts)
         lap("walk_s")

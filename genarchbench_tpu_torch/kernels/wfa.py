@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import ROITimer
+from genarchbench_tpu_torch.core.roi import ROITimer, span
 from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
 from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
                                                   mesh_devices, shard_items)
@@ -652,7 +652,7 @@ def _wfa_chunk(ids, dev, pats, txts, scap_start, x, o, e, red_len, red_dist,
     cap)."""
     (flat_p, off_p, lens_p, Lp), (flat_t, off_t, lens_t, Lt) = pats, txts
     t0 = time.perf_counter()
-    with torch.profiler.record_function("wfa.forward"):
+    with span("wfa.forward"):
         pat = torch.from_numpy(_fill(flat_p, off_p, ids, lens_p, Lp,
                                      250)).to(dev)
         txt = torch.from_numpy(_fill(flat_t, off_t, ids, lens_t, Lt,
@@ -671,12 +671,12 @@ def _wfa_chunk(ids, dev, pats, txts, scap_start, x, o, e, red_len, red_dist,
         max_steps = min(max_score // min(e, x) + 3, scap)
     else:
         max_steps = scap
-    with torch.profiler.record_function("wfa.backtrace"):
+    with span("wfa.backtrace"):
         res = _wfa_backtrace(state.store, state.fscore, state.foff, plen,
                              tlen, K0=K0, x=x, o=o, e=e, max_steps=max_steps)
         records = [r.cpu().numpy() for r in res[1:]]
     t2 = time.perf_counter()
-    with torch.profiler.record_function("wfa.cigars"):
+    with span("wfa.cigars"):
         cigs = native.wfa_cigars(*records)
     if stats is not None:
         stats["chunks"] += 1

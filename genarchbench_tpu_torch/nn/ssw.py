@@ -41,6 +41,7 @@ import torch
 
 from genarchbench_tpu_torch.core.backend import resolve_device
 from genarchbench_tpu_torch.core.blocks import run_blocks
+from genarchbench_tpu_torch.core.roi import span
 
 BLOCK = 32
 
@@ -347,7 +348,7 @@ class SswAligner:
             rdl[b], rfl[b] = len(rd[b]), len(rf[b])
 
         fwd, rev = {}, {}
-        with torch.profiler.record_function("ssw.sweep"):
+        with span("ssw.sweep"):
             best, best_i, end_read, maxcol = self._run(
                 refs_a, reads_a, rfl, rdl, np.zeros(B, np.int32), Lref,
                 Lread, graphed, fwd)
@@ -363,7 +364,7 @@ class SswAligner:
             rev_reads[b, :err + 1] = rd[b][err::-1]
             rev_refs[b, :er + 1] = rf[b][er::-1]
             rev_rdl[b], rev_rfl[b] = err + 1, er + 1
-        with torch.profiler.record_function("ssw.sweep"):
+        with span("ssw.sweep"):
             _, rbest_i, rend_read, _ = self._run(
                 rev_refs, rev_reads, rev_rfl, rev_rdl, best, Lref, Lread,
                 graphed, rev)
