@@ -161,11 +161,23 @@ class ChainPlan:
     W: int
 
 
-def pad_planes(recs: Sequence[chain_io.ChainRecord],
-               ws: Sequence[np.ndarray], n: np.ndarray, N: int) -> np.ndarray:
-    """(5, B, N) int32 planes of the first n[b] anchors of each record:
-    x's low word (uint32 bits), qi, span, sid and the window start st,
-    which is i past n[b] (an empty window); zeros elsewhere."""
+def pad_planes(flat: chain_io.FlatRecords, idx: np.ndarray, n: np.ndarray,
+               N: int) -> np.ndarray:
+    """(5, B, N) int32 planes of the first n[b] anchors of record idx[b]
+    of `flat`: x's low word (uint32 bits), qi, span, sid and the window
+    start st, which is i past n[b] (an empty window); zeros elsewhere.
+    Each row is decoded from its record's flat offset in C
+    (native/chain.c::chain_gather_planes); `pad_planes_plain` builds the
+    same planes record by record."""
+    return native.chain_gather_planes(flat.x, flat.y, flat.st,
+                                      flat.offs[idx], n, N)
+
+
+def pad_planes_plain(recs: Sequence[chain_io.ChainRecord],
+                     ws: Sequence[np.ndarray], n: np.ndarray,
+                     N: int) -> np.ndarray:
+    """`pad_planes` record by record, from each record's own x, y and
+    window starts `ws`."""
     live = [b for b in range(len(recs)) if n[b]]
     x_lo, qi, span, sid = _flat_decode([recs[b].x for b in live],
                                        [recs[b].y for b in live])
@@ -179,23 +191,22 @@ def pad_planes(recs: Sequence[chain_io.ChainRecord],
     return planes
 
 
-def plan_inputs(recs: Sequence[chain_io.ChainRecord],
-                ws: Sequence[np.ndarray], N: int) -> ChainPlan:
-    """The padded (B, N) inputs of one plan of records with window
-    starts `ws`, their gap corrections and window width: the widest
-    window rounded up to 32, or N when that is narrower."""
-    prm = {k: np.array([getattr(r, a) for r in recs], np.int32)
-           for k, a in (("mdx", "max_dist_x"), ("mdy", "max_dist_y"),
-                        ("bw", "bw"), ("nsegs", "n_segs"))}
-    avg32 = np.array([r.avg_qspan for r in recs], np.float32)
-    t_size = int(max(max(r.max_dist_x, r.bw) for r in recs)) + 1
+def plan_inputs(flat: chain_io.FlatRecords, idx: np.ndarray,
+                N: int) -> ChainPlan:
+    """The padded (B, N) inputs of one plan, records idx of `flat`, their
+    gap corrections and window width: the widest window rounded up to
+    32, or N when that is narrower."""
+    mdx, mdy, bw, nsegs = (a[idx].astype(np.int32) for a in (
+        flat.max_dist_x, flat.max_dist_y, flat.bw, flat.n_segs))
+    avg32 = flat.avg_qspan[idx]
+    t_size = int(max(flat.max_dist_x[idx].max(), flat.bw[idx].max())) + 1
     cdd, cdel, over = gap_corrections(avg32, t_size)
-    n = np.array([0 if o else r.n for r, o in zip(recs, over)], np.int32)
-    planes = pad_planes(recs, ws, n, N)
+    n = np.where(over, 0, flat.n[idx]).astype(np.int32)
+    planes = pad_planes(flat, idx, n, N)
     wmax = int((np.arange(N, dtype=np.int32) - planes[4]).max())
     W = min(-(-max(wmax, 1) // 32) * 32, N)
-    return ChainPlan(planes, n, prm["mdx"], prm["mdy"], prm["bw"],
-                     prm["nsegs"], avg32, cdd, cdel, over, W)
+    return ChainPlan(planes, n, mdx, mdy, bw, nsegs, avg32, cdd, cdel, over,
+                     W)
 
 
 class _Params:
@@ -386,8 +397,10 @@ def chain_batch(records: Sequence[chain_io.ChainRecord],
     plan's records split over its devices (`shard_items`), one plan of
     its own on each.
 
-    The call is the span `chain.batch`, tiled by `chain.starts` (window
-    starts), `chain.plan` (the plans, then each plan's inputs),
+    The call is the span `chain.batch`, tiled by `chain.starts` (the
+    records laid end to end once, with their window starts:
+    `chain_io.FlatRecords`), `chain.plan` (the plans, then each plan's
+    inputs gathered from them),
     `run_plan`'s spans, `chain.unpack` (each plan's results) and
     `chain.scalar` (the deferred records), closed by the counts
     `chain.records`, `.plans` and `.deferred`.  `stats`, when a dict,
@@ -404,32 +417,32 @@ def chain_batch(records: Sequence[chain_io.ChainRecord],
         lap = Laps(stats, devs[0])
         results: List[tuple] = [None] * len(records)
         with span("chain.starts", lap, "prep_s"):
-            ws_all = chain_io.window_starts_all(records, MAX_ITER)
+            flat = chain_io.FlatRecords.of(records, MAX_ITER)
         with span("chain.plan", lap, "prep_s"):
             parts = [(plan.length, dev, part) for plan in plan_batches(
-                [r.n for r in records], CELL_BUDGET, MAX_BATCH)
+                flat.n, CELL_BUDGET, MAX_BATCH)
                 for dev, part in zip(devs, shard_items(
                     np.asarray(plan.indices), mesh))]
         deferred: Dict[int, None] = {}     # ordered, once each
         for length, dev, part in parts:
             with span("chain.plan", lap, "prep_s"):
-                host = plan_inputs([records[k] for k in part],
-                                   [ws_all[k] for k in part], length)
-                deferred.update((int(part[b]), None)
-                                for b in np.flatnonzero(host.over))
+                host = plan_inputs(flat, part, length)
+                deferred.update((k, None) for k in part[host.over].tolist())
                 counts["plans"] += 1
                 counts["widths"].append((host.W, length))
                 counts["steps"] += int(host.n.max())
             with device_scope(dev):
                 out = run_plan(host, dev, lap)
             with span("chain.unpack", lap, "prep_s"):
-                for b, k in enumerate(part):
-                    if not host.over[b]:
-                        results[k] = tuple(out[:, b, :records[k].n])
+                for b, (k, m, o) in enumerate(zip(
+                        part.tolist(), host.n.tolist(), host.over.tolist())):
+                    if not o:
+                        results[k] = tuple(out[:, b, :m])
         with span("chain.scalar", lap, "scalar_s"):
             deferred = list(deferred)
+            o = flat.offs
             sub = scalar_dp([records[k] for k in deferred],
-                            [ws_all[k] for k in deferred])
+                            [flat.st[o[k]:o[k + 1]] for k in deferred])
             for k, res in zip(deferred, sub):
                 results[k] = res
         counts["deferred"] = len(deferred)

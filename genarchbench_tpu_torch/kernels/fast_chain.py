@@ -159,8 +159,9 @@ def fast_chain_batch(records: Sequence[chain_io.ChainRecord],
     Records go into plans of at most MAX_BATCH records and CELL_BUDGET
     padded cells; with a mesh, each plan's records split over its
     devices (`shard_items`).  The call is the span `fast_chain.batch`,
-    tiled by `fast_chain.starts` (window starts), `fast_chain.plan`
-    (the plans, then each plan's inputs) and each plan's
+    tiled by `fast_chain.starts` (the records laid end to end once,
+    with their window starts: `chain_io.FlatRecords`), `fast_chain.plan`
+    (the plans, then each plan's inputs gathered from them) and each plan's
     `fast_chain.h2d`, `.dp` (the far and near passes), `.wait` (the
     card's queue drained, on CUDA), `.d2h` and `.unpack` (its results),
     closed by the count `fast_chain.plans`.  `stats`, when a dict, is
@@ -176,30 +177,28 @@ def fast_chain_batch(records: Sequence[chain_io.ChainRecord],
         lap = Laps(stats, devs[0])
         results: List[tuple] = [None] * len(records)
         with span("fast_chain.starts", lap, "prep_s"):
-            ws_all = chain_io.window_starts_all(records, MAX_ITER)
+            flat = chain_io.FlatRecords.of(records, MAX_ITER)
         with span("fast_chain.plan", lap, "prep_s"):
             parts = [(plan.length, dev, part) for plan in plan_batches(
-                [r.n for r in records], CELL_BUDGET, MAX_BATCH)
+                flat.n, CELL_BUDGET, MAX_BATCH)
                 for dev, part in zip(devs, shard_items(
                     np.asarray(plan.indices), mesh))]
         for length, dev, part in parts:
             with device_scope(dev):
-                _fast_chain_plan(records, part, ws_all, length, dev, lap,
-                                 counts, results)
+                _fast_chain_plan(flat, part, length, dev, lap, counts,
+                                 results)
         count("fast_chain.plans", counts["plans"])
     if stats is not None:
         stats.update(counts)
     return results
 
 
-def _fast_chain_plan(records, idxs, ws_all, length, dev, lap, counts,
-                     results) -> None:
-    """One plan of the records at indices idxs on dev, their results
-    written into `results`."""
+def _fast_chain_plan(flat, idx, length, dev, lap, counts, results) -> None:
+    """One plan of the records idx of `flat` on dev, their results written
+    into `results`."""
     with span("fast_chain.plan", lap, "prep_s"):
-        recs = [records[k] for k in idxs]
-        n = np.array([r.n for r in recs], np.int32)
-        planes = pad_planes(recs, [ws_all[k] for k in idxs], n, length)
+        n = flat.n[idx].astype(np.int32)
+        planes = pad_planes(flat, idx, n, length)
         steps = int(n.max())
         chunks = far_chunks(planes[4], steps)
         for name, v in (("plans", 1), ("tiles", len(chunks)),
@@ -207,12 +206,10 @@ def _fast_chain_plan(records, idxs, ws_all, length, dev, lap, counts,
             counts[name] += v
     with span("fast_chain.h2d", lap, "h2d_s"):
         x_lo, qi, q_span, _, st = torch.from_numpy(planes).to(dev)
-        params = (([min(r.max_dist_x, r.max_dist_y) for r in recs],
-                   np.int32),
-                  ([r.bw for r in recs], np.int32),
-                  ([r.avg_qspan for r in recs], np.float32))
-        mdxy, bw, avg = (torch.from_numpy(np.array(v, dt)).to(dev)
-                         for v, dt in params)
+        mdxy, bw, avg = (torch.from_numpy(a).to(dev) for a in (
+            np.minimum(flat.max_dist_x[idx], flat.max_dist_y[idx])
+            .astype(np.int32), flat.bw[idx].astype(np.int32),
+            flat.avg_qspan[idx]))
     with span("fast_chain.dp"):
         scores, parents = _fast_chain_device(x_lo, qi, q_span, st, mdxy, bw,
                                              avg, steps, chunks, lap)
@@ -222,8 +219,11 @@ def _fast_chain_plan(records, idxs, ws_all, length, dev, lap, counts,
     with span("fast_chain.d2h", lap, "d2h_s"):
         out = torch.stack([scores, parents]).cpu().numpy()
     with span("fast_chain.unpack", lap, "prep_s"):
-        for b, k in enumerate(idxs):
-            results[k] = (out[0, b, :n[b]], out[1, b, :n[b]], None)
+        # row b's first n[b] as a slice of the flat rows, by plain ints
+        sc, pa = out.reshape(2, -1)
+        for k, a, e in zip(idx.tolist(), range(0, sc.size, length),
+                           (np.arange(0, sc.size, length) + n).tolist()):
+            results[k] = (sc[a:e], pa[a:e], None)
 
 
 def run(argv: Sequence[str]) -> int:

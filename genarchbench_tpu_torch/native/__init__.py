@@ -16,7 +16,8 @@ first uses never load a half-written library, and an edited source is
 rebuilt.  A failed build raises with the compiler's stderr: there is no
 Python fallback on the main path (the plain versions the tests hold
 these to are `kernels/wfa.py::_assemble_cigar`,
-`ChainRecord.window_starts`, `kernels/chain.py::gap_corrections_plain`,
+`ChainRecord.window_starts`, `kernels/chain.py::pad_planes_plain`,
+`kernels/chain.py::gap_corrections_plain`,
 `kernels/fmi.py::suffix_array_plain`, `kernels/abea.py::_peak_detect`,
 `kernels/poa.py::Graph`, `io/bam_io.py::bgzf_read_plain`,
 `io/fasta_io.py::_read_fasta_py`, `kernels/kmer.py::_deque_scan_py` and
@@ -142,6 +143,10 @@ def library() -> ctypes.CDLL:
             lib.chain_window_starts.restype = None
             lib.chain_window_starts.argtypes = [
                 i64, p64, ctypes.POINTER(ctypes.c_uint64), p64, i64, p32]
+            lib.chain_gather_planes.restype = None
+            pu64 = ctypes.POINTER(ctypes.c_uint64)
+            lib.chain_gather_planes.argtypes = [i64, i64, pu64, pu64, p32,
+                                                p64, p64, p32]
             lib.chain_gap_corr.restype = None
             lib.chain_gap_corr.argtypes = [
                 i64, ctypes.POINTER(ctypes.c_float), i64, i64,
@@ -251,6 +256,29 @@ def chain_window_starts(offs: np.ndarray, x: np.ndarray, mdx: np.ndarray,
     library().chain_window_starts(
         nrec, _ptr(offs, ctypes.c_int64), _ptr(x, ctypes.c_uint64),
         _ptr(mdx, ctypes.c_int64), max_iter, _ptr(out, ctypes.c_int32))
+    return out
+
+
+def chain_gather_planes(x: np.ndarray, y: np.ndarray, st: np.ndarray,
+                        off: np.ndarray, n: np.ndarray, N: int) -> np.ndarray:
+    """(5, B, N) int32 planes whose row b holds the n[b] anchors at flat
+    offset off[b] of the uint64 x and y and the int32 window starts st,
+    decoded (x's low word, qi, span, sid, st); zeros past them, and i
+    past them in the last plane (an empty window)."""
+    A = len(x)
+    x = _flat("x", x, np.uint64, A)
+    y = _flat("y", y, np.uint64, A)
+    st = _flat("st", st, np.int32, A)
+    n = np.ascontiguousarray(n, np.int64).ravel()
+    B = len(n)
+    off = _flat("off", off, np.int64, B)
+    if ((n < 0) | (n > N) | (off < 0) | (off + n > A)).any():
+        raise ValueError("records must lie in the flat arrays and fit in N")
+    out = np.zeros((5, B, N), np.int32)
+    library().chain_gather_planes(
+        B, N, _ptr(x, ctypes.c_uint64), _ptr(y, ctypes.c_uint64),
+        _ptr(st, ctypes.c_int32), _ptr(off, ctypes.c_int64),
+        _ptr(n, ctypes.c_int64), _ptr(out, ctypes.c_int32))
     return out
 
 

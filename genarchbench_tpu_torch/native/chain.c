@@ -1,8 +1,8 @@
 /* Host helpers of the chain / fast-chain path (kernels/chain.py,
- * kernels/fast_chain.py): window starts, the f32-vs-f64 gap-cost
- * corrections, and the exact scalar chain DP for the records whose
- * corrections cannot be bounded.  Reference semantics:
- * chain/src/host_kernel.cpp:50-93. */
+ * kernels/fast_chain.py): window starts, a plan's padded planes, the
+ * f32-vs-f64 gap-cost corrections, and the exact scalar chain DP for
+ * the records whose corrections cannot be bounded.  Reference
+ * semantics: chain/src/host_kernel.cpp:50-93. */
 
 #include <stdint.h>
 #include <stdlib.h>
@@ -25,6 +25,33 @@ void chain_window_starts(int64_t n_rec, const int64_t *offs,
             if (v < lim) v = lim;
             out[i] = (int32_t)v;
         }
+    }
+}
+
+/* One plan's (5, B, N) int32 planes, into a zeroed `out`: row b holds
+ * the n[b] anchors of the record at flat offset off[b] of x, y and st,
+ * decoded as x's low word (uint32 bits), qi (y's low word), span (y
+ * bits 32-39), sid (y bits 48-55) and the window start; the window-start
+ * plane holds i past n[b] (an empty window), the others stay zero,
+ * untouched.  The caller checks 0 <= n[b] <= N and off[b] + n[b] <= A. */
+void chain_gather_planes(int64_t B, int64_t N, const uint64_t *x,
+                         const uint64_t *y, const int32_t *st,
+                         const int64_t *off, const int64_t *n,
+                         int32_t *out) {
+    for (int64_t b = 0; b < B; b++) {
+        const uint64_t *xb = x + off[b], *yb = y + off[b];
+        const int32_t *sb = st + off[b];
+        int32_t *xl = out + b * N, *q = xl + B * N, *sp = q + B * N;
+        int32_t *sd = sp + B * N, *w = sd + B * N;
+        int64_t m = n[b];
+        for (int64_t i = 0; i < m; i++) {
+            xl[i] = (int32_t)(uint32_t)xb[i];
+            q[i] = (int32_t)(uint32_t)yb[i];
+            sp[i] = (int32_t)((yb[i] >> 32) & 0xFF);
+            sd[i] = (int32_t)((yb[i] >> 48) & 0xFF);
+            w[i] = sb[i];
+        }
+        for (int64_t i = m; i < N; i++) w[i] = (int32_t)i;
     }
 }
 

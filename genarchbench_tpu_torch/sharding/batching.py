@@ -40,23 +40,17 @@ def plan_batches(lengths: Sequence[int], cell_budget: int,
     Sorts records by length (desc) so same-bucket records have similar
     padded length, then greedily fills batches of at most `max_batch`
     records under `cell_budget` (records * padded_length) to bound
-    device memory.  Returns plans whose `indices` cover every input
-    exactly once.
+    device memory: each plan is the next run of the sorted order.
+    Returns plans whose `indices` cover every input exactly once.
     """
-    order = np.argsort(np.asarray(lengths))[::-1]
+    lengths = np.asarray(lengths)
+    order = np.argsort(lengths)[::-1]
     plans: List[BatchPlan] = []
     i = 0
     nrec = len(order)
     while i < nrec:
-        first = int(order[i])
-        plen = next_pow2(max(int(lengths[first]), 1), MIN_LENGTH)
-        max_b = max(1, min(max_batch, cell_budget // plen))
-        members = [first]
-        j = i + 1
-        while j < nrec and len(members) < max_b:
-            members.append(int(order[j]))
-            j += 1
-        plans.append(BatchPlan(members, plen))
+        plen = next_pow2(max(int(lengths[order[i]]), 1), MIN_LENGTH)
+        j = min(nrec, i + max(1, min(max_batch, cell_budget // plen)))
+        plans.append(BatchPlan(order[i:j].tolist(), plen))
         i = j
     return plans
-

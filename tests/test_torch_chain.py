@@ -17,12 +17,16 @@ import torch
 from genarchbench_tpu import native as jax_native
 from genarchbench_tpu.io import chain_io as jax_chain_io
 from genarchbench_tpu.kernels import chain as jchain
+from genarchbench_tpu.kernels import fast_chain as jfc
 from genarchbench_tpu_torch import cli, native
 from genarchbench_tpu_torch.io import chain_io
-from genarchbench_tpu_torch.kernels import chain
+from genarchbench_tpu_torch.kernels import chain, fast_chain
+from genarchbench_tpu_torch.sharding.batching import plan_batches
+from genarchbench_tpu_torch.sharding.mesh import data_mesh, shard_items
 from tests.synth import gen_chain_input
 from tests.torch_chain_inputs import (chain_text, clz_text, deferral_text,
-                                      dense_text, skip_break_text, tie_text,
+                                      dense_text, ont_like_text,
+                                      skip_break_text, sr_like_text, tie_text,
                                       wrap_text)
 
 # tests/test_chain.py's sets: (seed, records, anchors, segments)
@@ -81,6 +85,114 @@ def test_chain_batch_equal(name):
         assert got[0][1][128] == 127 and got[0][1][256] == 255
 
 
+def shared_buffers(recs):
+    """The records again, each x and y a view of one buffer of all their
+    anchors, as the benchmark's adapter builds them."""
+    x, y = (np.concatenate([getattr(r, a) for r in recs]) for a in "xy")
+    offs = np.cumsum([0] + [r.n for r in recs]).tolist()
+    return [dataclasses.replace(r, x=x[a:b], y=y[a:b])
+            for r, a, b in zip(recs, offs[:-1], offs[1:])]
+
+
+@pytest.mark.parametrize("entry", ["chain", "fast-chain"])
+@pytest.mark.parametrize("name", ["set2", "deferral", "sr-like"])
+def test_entries_on_shared_buffers(entry, name):
+    """Both entries on records whose x and y are views of one buffer,
+    against the JAX package on the reader's records and against the
+    entry on the separately allocated records."""
+    text = (sr_like_text(np.random.default_rng(32), 120)
+            if name == "sr-like" else INPUTS[name]())
+    ours, theirs = records(text)
+    shared = shared_buffers(ours)
+    assert all(r.x.base is shared[0].x.base for r in shared)
+    fast = entry == "fast-chain"
+    ours_fn = fast_chain.fast_chain_batch if fast else chain.chain_batch
+    jax_fn = jfc.fast_chain_batch if fast else jchain.chain_batch
+    got = ours_fn(shared, device="cpu")
+    assert_same(got, jax_fn(theirs), peaks=not fast)
+    assert_same(got, ours_fn(ours, device="cpu"), peaks=not fast)
+
+
+PLAN_CASES = {
+    "sr-like": lambda rng: sr_like_text(rng, 300),
+    "ont-like": lambda rng: ont_like_text(rng, 5),
+    "deferred-rows": lambda rng: sr_like_text(rng, 40),
+    "one-record": lambda rng: ont_like_text(rng, 1),
+    "shard-split": lambda rng: sr_like_text(rng, 77),
+    "empty": lambda rng: "",
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_gathered_planes_equal_plain(case, monkeypatch):
+    """The flat view's per-record parameters, anchors and window
+    starts, each plan's planes gathered and decoded by flat offsets
+    (`pad_planes`) and `plan_inputs`' parameters, bit for bit against
+    the record-by-record plain versions (`ChainRecord.window_starts`,
+    `pad_planes_plain`)."""
+    recs, _ = records(PLAN_CASES[case](np.random.default_rng(31)))
+    flat = chain_io.FlatRecords.of(recs, chain.MAX_ITER)
+    for f, a, dt in (("n", "n", np.int64), ("max_dist_x",) * 2 + (np.int64,),
+                     ("max_dist_y",) * 2 + (np.int64,),
+                     ("bw", "bw", np.int64), ("n_segs",) * 2 + (np.int64,),
+                     ("avg_qspan",) * 2 + (np.float32,)):
+        want = np.array([getattr(r, a) for r in recs], dt)
+        assert getattr(flat, f).dtype == dt
+        np.testing.assert_array_equal(getattr(flat, f).view(want.dtype),
+                                      want, err_msg=f)
+    for f in "xy":
+        np.testing.assert_array_equal(getattr(flat, f), np.concatenate(
+            [getattr(r, f) for r in recs] + [np.zeros(0, np.uint64)]))
+    ws = [r.window_starts(chain.MAX_ITER) for r in recs]
+    np.testing.assert_array_equal(
+        flat.st, np.concatenate(ws + [np.zeros(0, np.int32)]))
+    for g, w in zip(chain_io.window_starts_all(recs, chain.MAX_ITER), ws):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    parts = [(np.asarray(p.indices), p.length) for p in plan_batches(
+        flat.n, chain.CELL_BUDGET, chain.MAX_BATCH)]
+    if case == "shard-split":
+        monkeypatch.setenv("GENARCH_DEVICE", "cpu")
+        parts = [(part, N) for idx, N in parts
+                 for part in shard_items(idx, data_mesh(2))]
+        assert parts[1][0][-1] == parts[1][0][-2]    # the padding repeat
+    assert len(parts) == {"empty": 0, "shard-split": 2}.get(case, 1)
+    for idx, N in parts:
+        sub, sub_ws = [recs[k] for k in idx], [ws[k] for k in idx]
+        n = flat.n[idx].astype(np.int32)
+        if case == "deferred-rows":
+            n[::3] = 0
+        got = chain.pad_planes(flat, idx, n, N)
+        assert got.dtype == np.int32 and got.shape == (5, len(idx), N)
+        np.testing.assert_array_equal(
+            got, chain.pad_planes_plain(sub, sub_ws, n, N))
+        plan = chain.plan_inputs(flat, idx, N)
+        for f, a in (("mdx", "max_dist_x"), ("mdy", "max_dist_y"),
+                     ("bw", "bw"), ("nsegs", "n_segs")):
+            np.testing.assert_array_equal(
+                getattr(plan, f), np.array([getattr(r, a) for r in sub],
+                                           np.int32), err_msg=f)
+        np.testing.assert_array_equal(
+            plan.avg32.view(np.int32),
+            np.array([r.avg_qspan for r in sub], np.float32).view(np.int32))
+        np.testing.assert_array_equal(
+            plan.n, [0 if o else r.n for r, o in zip(sub, plan.over)])
+        np.testing.assert_array_equal(
+            plan.planes, chain.pad_planes_plain(sub, sub_ws, plan.n, N))
+    if case == "ont-like":              # avg_qspan 15 rows defer, others not
+        assert 0 < plan.over.sum() < len(recs)
+    assert chain.pad_planes(flat, np.zeros(0, np.int64), np.zeros(0, np.int32),
+                            16).shape == (5, 0, 16)
+
+
+def test_flat_records_refuse_a_wrong_count():
+    """A record whose n is not its number of anchors is refused."""
+    recs, _ = records(sr_like_text(np.random.default_rng(33), 5))
+    recs[2] = dataclasses.replace(recs[2], n=recs[2].n + 1)
+    with pytest.raises(ValueError, match="n uint64 each"):
+        chain_io.FlatRecords.of(recs, chain.MAX_ITER)
+
+
 def test_skip_break_input_reaches_the_break():
     """The stress input's parents differ from the JAX function's without
     the skip heuristic, in the kernel and in the C scalar DP alike."""
@@ -114,7 +226,8 @@ def test_kernels_agree_on_a_plan(name):
     recs, _ = records(INPUTS[name]())
     ws = chain_io.window_starts_all(recs, chain.MAX_ITER)
     N = 1 << int(np.ceil(np.log2(max(r.n for r in recs))))
-    plan = chain.plan_inputs(recs, ws, N)
+    plan = chain.plan_inputs(chain_io.FlatRecords.of(recs, chain.MAX_ITER),
+                             np.arange(len(recs)), N)
     assert not plan.over.any()
     assert (plan.W == N) == (name == "dense")
     win = chain.run_plan(plan, torch.device("cpu"))
@@ -134,7 +247,8 @@ def test_clz_boundaries(monkeypatch):
         np.full((len(avg32), ck), -1, np.int32),
         np.zeros((len(avg32), ck), np.int32), np.zeros(len(avg32), bool)))
     ws = chain_io.window_starts_all(recs, chain.MAX_ITER)
-    plan = chain.plan_inputs(recs, ws, 64)
+    plan = chain.plan_inputs(chain_io.FlatRecords.of(recs, chain.MAX_ITER),
+                             np.arange(len(recs)), 64)
     assert plan.W == 64
     win = chain.run_plan(plan, torch.device("cpu"))
     for b, res in enumerate(chain.scalar_dp(recs, ws)):

@@ -136,3 +136,40 @@ def clz_text():
         q = np.concatenate([[0], np.cumsum(dq)]).astype(np.uint64)
         recs.append((0.0, big, big, big, 1, x, SPAN15 | q))
     return chain_text(recs)
+
+
+def sr_like_text(rng, count):
+    """Records shaped like `-x sr` pairs: two mates of 150 bases 350
+    apart, each a few tens of k = 21 anchors (segment 0, then 1), the
+    query the two mates end to end, max_dist_x 500, max_dist_y 300, bw
+    100; now and then a record of no anchor."""
+    recs = []
+    for _ in range(count):
+        m = rng.integers(0, 20, 2) * (rng.random() > 0.02)
+        pos = int(rng.integers(0, 4_000_000))
+        x, q, sid = [], [], []
+        for s, k in enumerate(m):
+            off = np.sort(rng.choice(130, int(k), replace=False))
+            x.append(pos + 350 * s + off)
+            q.append(150 * s + off + rng.integers(0, 3, int(k)))
+            sid.append(np.full(int(k), s))
+        x, q, sid = (np.concatenate(a).astype(np.uint64) for a in (x, q, sid))
+        recs.append((21.0, 500, 300, 100, 2, (np.uint64(1) << np.uint64(32))
+                     | x, (sid << np.uint64(48)) | (np.uint64(21) <<
+                                                    np.uint64(32)) | q))
+    return chain_text(recs)
+
+
+def ont_like_text(rng, count):
+    """Records shaped like `-x map-ont` reads: hundreds to a few thousand
+    anchors about 12 bases apart, max_dist_x = max_dist_y = 5000, bw 500,
+    avg_qspan 15 (deferred by chain) or drawn in [10, 40)."""
+    recs = []
+    for _ in range(count):
+        n = int(rng.integers(200, 3000))
+        x = 10**6 + np.cumsum(rng.integers(0, 25, n)).astype(np.uint64)
+        q = np.cumsum(rng.integers(0, 25, n)).astype(np.uint64)
+        avg = 15.0 if rng.random() < 0.5 else \
+            float(np.float32(rng.uniform(10, 40)))
+        recs.append((avg, 5000, 5000, 500, 1, x, SPAN15 | q))
+    return chain_text(recs)
