@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from genarchbench_tpu_torch import native
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import ROITimer, span
+from genarchbench_tpu_torch.core.roi import ROITimer, count, span
 from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
 from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
                                                   mesh_devices, shard_items)
@@ -571,28 +571,10 @@ def _forward_chunk(pat, txt, plen, tlen, scap, x, o, e, red_len,
             mmtbl = _build_mismatch_table(pat, txt, K0, D)
 
 
-def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
-              max_batch: int = 16384, scap0: int = 64, red_len: int = 0,
-              red_dist: int = 0, device: Optional[str] = None,
-              stats: Optional[Dict[str, float]] = None,
-              mesh: Optional[Mesh] = None) -> List[str]:
-    """RLE CIGAR per pair in input order (complete-wavefronts mode).
-    With a mesh, each chunk's pairs split over its devices
-    (`shard_items`), each shard running its own score loop to its own
-    cap: a pair's CIGAR depends on no other pair.
-
-    `stats`, when a dict, is filled with the chunks, score steps,
-    resumes and backtrace steps of the run, the bytes of its backtrace
-    stores and mismatch tables (each written or read once at least),
-    and the seconds of its forward passes, backtraces and CIGAR assembly
-    (read at the syncs the run makes anyway)."""
-    devs = mesh_devices(mesh, device)
-    if stats is not None:
-        stats.update(chunks=0, score_steps=0, resumes=0, bt_steps=0,
-                     forward_bytes=0, forward_s=0.0, backtrace_s=0.0,
-                     cigar_s=0.0)
+def _prepare(pairs: SeqPairs):
+    """The pairs' (Lp, Lt) buckets of indices, near-equal ones coalesced,
+    and the patterns and texts as (flat codes, offsets, lengths)."""
     n = len(pairs)
-    out: List[str] = [""] * n
     lens_p = np.array([p.shape[0] for p in pairs.patterns], np.int64)
     lens_t = np.array([t.shape[0] for t in pairs.texts], np.int64)
     off_p = np.zeros(n + 1, np.int64)
@@ -620,27 +602,58 @@ def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
             for key in sorted(buckets):
                 merged.extend(buckets[key])
             buckets = {(Lp_max, Lt_max): merged}
+    return buckets, (flat_p, off_p, lens_p), (flat_t, off_t, lens_t)
 
-    for (Lp, Lt), idxs in sorted(buckets.items()):
-        # bound device memory for the (B, Scap, D) backtrace stores; the
-        # cap resumes double scap (and grow D), so budget for ~4x growth
-        # over the initial geometry
-        _, D0 = _geometry(Lp, Lt, scap0)
-        mb = max(256, min(max_batch, (1 << 26) // max(D0 * scap0, 1)))
-        scap_start = scap0     # learned: later chunks of the bucket
-        for lo_i in range(0, len(idxs), mb):
-            chunk = np.asarray(idxs[lo_i:lo_i + mb])
-            caps = []
-            for dev, ids in zip(devs, shard_items(chunk, mesh)):
-                with device_scope(dev):
-                    cigs, scap = _wfa_chunk(
-                        ids, dev, (flat_p, off_p, lens_p, Lp),
-                        (flat_t, off_t, lens_t, Lt), scap_start, x, o, e,
-                        red_len, red_dist, stats)
-                caps.append(scap)
-                for b, i in enumerate(ids):
-                    out[i] = cigs[b]
-            scap_start = max(caps)
+
+def wfa_batch(pairs: SeqPairs, x: int = 4, o: int = 6, e: int = 2,
+              max_batch: int = 16384, scap0: int = 64, red_len: int = 0,
+              red_dist: int = 0, device: Optional[str] = None,
+              stats: Optional[Dict[str, float]] = None,
+              mesh: Optional[Mesh] = None) -> List[str]:
+    """RLE CIGAR per pair in input order (complete-wavefronts mode).
+    With a mesh, each chunk's pairs split over its devices
+    (`shard_items`), each shard running its own score loop to its own
+    cap: a pair's CIGAR depends on no other pair.
+
+    The call is the span `wfa.batch`, tiled by `wfa.prep` (`_prepare`,
+    then each chunk's padded rows) and by each chunk's `wfa.h2d`,
+    `wfa.forward` (the score loop and its resumes), `wfa.backtrace`
+    (enqueued and drained), `wfa.d2h` and `wfa.cigars`, with the counts
+    `wfa.score_steps` and `wfa.resumes` of each chunk under it.
+
+    `stats`, when a dict, is filled with the chunks, score steps,
+    resumes and backtrace steps of the run, the bytes of its backtrace
+    stores and mismatch tables (each written or read once at least),
+    and the seconds of its forward passes, backtraces and CIGAR assembly
+    (read at the syncs the run makes anyway)."""
+    with span("wfa.batch"):
+        devs = mesh_devices(mesh, device)
+        if stats is not None:
+            stats.update(chunks=0, score_steps=0, resumes=0, bt_steps=0,
+                         forward_bytes=0, forward_s=0.0, backtrace_s=0.0,
+                         cigar_s=0.0)
+        out: List[str] = [""] * len(pairs)
+        with span("wfa.prep"):
+            buckets, pats, txts = _prepare(pairs)
+        for (Lp, Lt), idxs in sorted(buckets.items()):
+            # bound device memory for the (B, Scap, D) backtrace stores;
+            # the cap resumes double scap (and grow D), so budget for ~4x
+            # growth over the initial geometry
+            _, D0 = _geometry(Lp, Lt, scap0)
+            mb = max(256, min(max_batch, (1 << 26) // max(D0 * scap0, 1)))
+            scap_start = scap0     # learned: later chunks of the bucket
+            for lo_i in range(0, len(idxs), mb):
+                chunk = np.asarray(idxs[lo_i:lo_i + mb])
+                caps = []
+                for dev, ids in zip(devs, shard_items(chunk, mesh)):
+                    with device_scope(dev):
+                        cigs, scap = _wfa_chunk(
+                            ids, dev, pats + (Lp,), txts + (Lt,),
+                            scap_start, x, o, e, red_len, red_dist, stats)
+                    caps.append(scap)
+                    for b, i in enumerate(ids):
+                        out[i] = cigs[b]
+                scap_start = max(caps)
     return out
 
 
@@ -652,13 +665,13 @@ def _wfa_chunk(ids, dev, pats, txts, scap_start, x, o, e, red_len, red_dist,
     cap)."""
     (flat_p, off_p, lens_p, Lp), (flat_t, off_t, lens_t, Lt) = pats, txts
     t0 = time.perf_counter()
+    with span("wfa.prep"):
+        host = (_fill(flat_p, off_p, ids, lens_p, Lp, 250),
+                _fill(flat_t, off_t, ids, lens_t, Lt, 251),
+                lens_p[ids].astype(np.int32), lens_t[ids].astype(np.int32))
+    with span("wfa.h2d"):
+        pat, txt, plen, tlen = (torch.from_numpy(a).to(dev) for a in host)
     with span("wfa.forward"):
-        pat = torch.from_numpy(_fill(flat_p, off_p, ids, lens_p, Lp,
-                                     250)).to(dev)
-        txt = torch.from_numpy(_fill(flat_t, off_t, ids, lens_t, Lt,
-                                     251)).to(dev)
-        plen = torch.from_numpy(lens_p[ids].astype(np.int32)).to(dev)
-        tlen = torch.from_numpy(lens_t[ids].astype(np.int32)).to(dev)
         state, K0, scap, max_score, resumes = _forward_chunk(
             pat, txt, plen, tlen, scap_start, x, o, e, red_len, red_dist)
     t1 = time.perf_counter()
@@ -674,10 +687,15 @@ def _wfa_chunk(ids, dev, pats, txts, scap_start, x, o, e, red_len, red_dist,
     with span("wfa.backtrace"):
         res = _wfa_backtrace(state.store, state.fscore, state.foff, plen,
                              tlen, K0=K0, x=x, o=o, e=e, max_steps=max_steps)
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    with span("wfa.d2h"):
         records = [r.cpu().numpy() for r in res[1:]]
     t2 = time.perf_counter()
     with span("wfa.cigars"):
         cigs = native.wfa_cigars(*records)
+    count("wfa.score_steps", state.s)
+    count("wfa.resumes", resumes)
     if stats is not None:
         stats["chunks"] += 1
         stats["score_steps"] += state.s

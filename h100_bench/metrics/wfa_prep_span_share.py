@@ -1,0 +1,14 @@
+"""Host preparation's share of the window: the program's spans
+`wfa.prep` (lengths, offsets, the flat sequences and the buckets, then
+each chunk's padded rows), over the summed wall time of the window's
+batches.  Nothing to read where the program keeps no `wfa.batch` root
+tiled by its phases (`wfa.forward` no child of one)."""
+
+from h100_bench.harness.spans import window_spans
+
+
+def read(run):
+    w = window_spans(run)
+    if w is None or "forward" not in w.phase_s:
+        return None
+    return w.share(("prep",))
