@@ -956,8 +956,9 @@ def chain_phase(card: str, bench_path: pathlib.Path):
         line = timing_line(errp.read_text(), "Time in kernel")
         recs = chain_io.read_records_path(str(inp))
         ws = chain_io.window_starts_all(recs, chain.MAX_ITER)
+        flat = chain_io.FlatRecords.of(recs, chain.MAX_ITER)
         t0 = time.perf_counter()
-        want = chain_lines(chain.scalar_dp(recs, ws))
+        want = chain_lines(chain.scalar_dp(flat, np.arange(len(recs))))
         scalar_ms = (time.perf_counter() - t0) * 1e3
         res = check_exact(outp.read_text().splitlines(), want)
         if not res:

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -84,28 +84,16 @@ def clin_table(avg_qspan: float, size: int) -> np.ndarray:
 
 
 def _flat_decode(xs, ys):
-    """The concatenated u64 anchor arrays as flat planes in one pass:
-    x_lo (uint32), qi (int32), span (uint8, y bits 32-39) and sid
-    (uint8, y bits 48-55)."""
-    flat_x = np.concatenate(xs) if xs else np.zeros(0, np.uint64)
-    flat_y = np.concatenate(ys) if ys else np.zeros(0, np.uint64)
-    if sys.byteorder == "little":
-        x_lo = np.ascontiguousarray(
-            flat_x.view(np.uint32).reshape(-1, 2)[:, 0])
-        qi = np.ascontiguousarray(
-            flat_y.view(np.uint32).reshape(-1, 2)[:, 0]).view(np.int32)
-        yb = flat_y.view(np.uint8).reshape(-1, 8)
-        span = np.ascontiguousarray(yb[:, 4])
-        sid = np.ascontiguousarray(yb[:, 6])
-    else:
-        x_lo = (flat_x & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-        qi = (flat_y & np.uint64(0xFFFFFFFF)).astype(np.uint32) \
-            .view(np.int32)
-        span = ((flat_y >> np.uint64(32)) & np.uint64(0xFF)) \
-            .astype(np.uint8)
-        sid = ((flat_y >> np.uint64(48)) & np.uint64(0xFF)) \
-            .astype(np.uint8)
-    return x_lo, qi, span, sid
+    """The concatenated u64 anchor arrays as flat planes: x_lo (uint32),
+    qi (int32), span (uint8, y bits 32-39) and sid (uint8, y bits
+    48-55)."""
+    x = np.concatenate(xs) if xs else np.zeros(0, np.uint64)
+    y = np.concatenate(ys) if ys else np.zeros(0, np.uint64)
+    lo, b8 = np.uint64(0xFFFFFFFF), np.uint64(0xFF)
+    return ((x & lo).astype(np.uint32),
+            (y & lo).astype(np.uint32).view(np.int32),
+            ((y >> np.uint64(32)) & b8).astype(np.uint8),
+            ((y >> np.uint64(48)) & b8).astype(np.uint8))
 
 
 def gap_corrections(avg32: np.ndarray, t_size: int, ck: int = CORR_K):
@@ -189,6 +177,74 @@ def pad_planes_plain(recs: Sequence[chain_io.ChainRecord],
     for k, v in enumerate((x_lo.view(np.int32), qi, span, sid, st)):
         planes[k][mask] = v
     return planes
+
+
+def run_plans(kind: str, records, device, stats, mesh, *, max_batch: int,
+              cell_budget: int, seconds, counts: dict, emit, prepare,
+              upload, dp, dp_key: Optional[str], wait_key: str,
+              finish: Optional[Callable] = None) -> List[tuple]:
+    """The frame of both chaining entries, `chain_batch` and
+    `fast_chain.fast_chain_batch`: [(scores, parents, peaks or None)] of
+    every record in order.
+
+    The records are laid end to end once (`chain_io.FlatRecords`) and
+    cut into plans of at most max_batch records and cell_budget padded
+    cells, each split over the mesh's devices (`shard_items`).  A plan's
+    records idx at padded length N run as `prepare(flat, idx, N)`, which
+    returns its host inputs and the rows' lengths (in `<kind>.plan`),
+    `upload(host, dev)` (`.h2d`), `dp(host, inputs, lap)` (`.dp`), the
+    card's queue drained (`.wait`), the DP's outputs stacked to the host
+    (`.d2h`) and row b's first n[b] made record idx[b]'s result
+    (`.unpack`); then `finish(flat, lap, results)`.  The counts
+    `<kind>.<name>` of `emit` close the root span `<kind>.batch`.
+    `stats`, when a dict, gets `seconds`, summed from the spans (prep_s,
+    h2d_s, d2h_s, `dp_key` unless None, `wait_key`), then `counts`."""
+    with span(f"{kind}.batch"):
+        devs = mesh_devices(mesh, device)
+        if stats is not None:
+            stats.update(dict.fromkeys(seconds, 0.0))
+        lap = Laps(stats, devs[0])
+        results: List[tuple] = [None] * len(records)
+        with span(f"{kind}.starts", lap, "prep_s"):
+            flat = chain_io.FlatRecords.of(records, MAX_ITER)
+        with span(f"{kind}.plan", lap, "prep_s"):
+            parts = [(plan.length, dev, part) for plan in plan_batches(
+                flat.n, cell_budget, max_batch)
+                for dev, part in zip(devs, shard_items(
+                    np.asarray(plan.indices), mesh))]
+        for length, dev, part in parts:
+            with span(f"{kind}.plan", lap, "prep_s"):
+                host, n = prepare(flat, part, length)
+            with device_scope(dev):
+                with span(f"{kind}.h2d", lap, "h2d_s"):
+                    inputs = upload(host, dev)
+                with span(f"{kind}.dp", lap if dp_key else None, dp_key):
+                    out = dp(host, inputs, lap)
+                with span(f"{kind}.wait", lap, wait_key):
+                    if dev.type == "cuda":
+                        torch.cuda.current_stream(dev).synchronize()
+                with span(f"{kind}.d2h", lap, "d2h_s"):
+                    out = torch.stack(out).cpu().numpy()
+            with span(f"{kind}.unpack", lap, "prep_s"):
+                # slices of the flat rows by plain ints, one tuple a
+                # record: a generator a record costs 5x as much
+                sc, pa, *pk = out.reshape(len(out), -1)
+                for k, a, e in zip(part.tolist(), range(0, sc.size, length),
+                                   (np.arange(0, sc.size, length)
+                                    + n).tolist()):
+                    results[k] = (sc[a:e], pa[a:e],
+                                  pk[0][a:e] if pk else None)
+            # this plan's planes and device inputs go before the next
+            # plan's are made
+            del host, inputs
+        if finish is not None:
+            finish(flat, lap, results)
+        for name in emit:
+            count(f"{kind}.{name}",
+                  len(records) if name == "records" else counts[name])
+    if stats is not None:
+        stats.update(counts)
+    return results
 
 
 def plan_inputs(flat: chain_io.FlatRecords, idx: np.ndarray,
@@ -349,40 +405,29 @@ def _chain_dp_win_device(planes: torch.Tensor, n: torch.Tensor, p: _Params,
     return SP[0, :, W:], parents[:, W:], SP[1, :, W:]
 
 
-def run_plan(plan: ChainPlan, dev: torch.device,
-             lap: Optional[Laps] = None) -> np.ndarray:
-    """Copy one plan to `dev`, run the kernel and return (3, B, N) int32
-    scores, parents, peaks, in the spans `chain.h2d`, `chain.dp`,
-    `chain.wait` (the card's queue drained, on CUDA) and `chain.d2h`;
-    `lap` marks them as h2d_s, loop_s, loop_s and d2h_s."""
-    with span("chain.h2d", lap, "h2d_s"):
-        planes = torch.from_numpy(plan.planes).to(dev)
-        n = torch.from_numpy(plan.n).to(dev)
-        p = _Params(plan, dev)
-    with span("chain.dp", lap, "loop_s"):
-        out = _chain_dp_win_device(planes, n, p, plan.W, int(plan.n.max()))
-    with span("chain.wait", lap, "loop_s"):
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-    with span("chain.d2h", lap, "d2h_s"):
-        return torch.stack(out).cpu().numpy()
+def upload_plan(plan: ChainPlan, dev: torch.device):
+    """One plan's planes, lengths and (B, 1) parameters on `dev`."""
+    return (torch.from_numpy(plan.planes).to(dev),
+            torch.from_numpy(plan.n).to(dev), _Params(plan, dev))
 
 
-def scalar_dp(recs: Sequence[chain_io.ChainRecord],
-              ws: Sequence[np.ndarray]) -> List[tuple]:
-    """The exact scalar DP in C (native/chain.c::chain_dp_scalar) over
-    `recs` with window starts `ws`: [(scores, parents, peaks)]."""
-    ns = np.array([r.n for r in recs], np.int64)
-    x_lo, qi, span, sid = _flat_decode([r.x for r in recs],
-                                       [r.y for r in recs])
-    flat = native.chain_dp_scalar(
-        ns, [np.float32(r.avg_qspan) for r in recs],
-        [r.max_dist_x for r in recs], [r.max_dist_y for r in recs],
-        [r.bw for r in recs], [r.n_segs for r in recs], x_lo, qi, span,
-        sid, np.concatenate(list(ws) + [np.zeros(0, np.int32)]))
-    offs = np.concatenate([[0], np.cumsum(ns)])
-    return [tuple(a[offs[b]:offs[b + 1]] for a in flat)
-            for b in range(len(recs))]
+def window_dp(plan: ChainPlan, inputs, lap: Optional[Laps] = None):
+    """The windowed kernel on one plan's `upload_plan` inputs."""
+    return _chain_dp_win_device(*inputs, plan.W, int(plan.n.max()))
+
+
+def scalar_dp(flat: chain_io.FlatRecords, idx: np.ndarray) -> List[tuple]:
+    """The exact scalar DP in C (native/chain.c::chain_dp_scalar) over the
+    records idx of `flat`, each read at its flat offset:
+    [(scores, parents, peaks)] in idx's order."""
+    idx = np.asarray(idx, np.int64)
+    ns = flat.n[idx]
+    out = native.chain_dp_scalar(
+        flat.x, flat.y, flat.st, flat.offs[idx], ns, flat.avg_qspan[idx],
+        *(a[idx] for a in (flat.max_dist_x, flat.max_dist_y, flat.bw,
+                           flat.n_segs)))
+    o = np.concatenate([[0], np.cumsum(ns)]).tolist()
+    return [tuple(a[s:e] for a in out) for s, e in zip(o[:-1], o[1:])]
 
 
 def chain_batch(records: Sequence[chain_io.ChainRecord],
@@ -391,68 +436,37 @@ def chain_batch(records: Sequence[chain_io.ChainRecord],
                 mesh: Optional[Mesh] = None) -> List[tuple]:
     """chain_dp over records: [(scores, parents, peaks)] in order.
 
-    Records go into plans of at most MAX_BATCH records and CELL_BUDGET
-    padded cells, each run by the windowed kernel; the records
-    `gap_corrections` defers run the scalar C DP.  With a mesh, each
-    plan's records split over its devices (`shard_items`), one plan of
-    its own on each.
+    `run_plans` runs the plans by the windowed kernel (its anchor loop
+    the span `chain.loop`); then the records `gap_corrections` defers
+    run the scalar C DP once each, in the span `chain.scalar`.  `stats`
+    gets the plans, their (W, N), the anchor steps, the deferred records
+    and the seconds of host preparation, copies, anchor loops (`.dp`,
+    `.wait`) and scalar DP."""
+    counts = dict(plans=0, widths=[], steps=0, deferred=0)
+    deferred: Dict[int, None] = {}     # ordered, once each
 
-    The call is the span `chain.batch`, tiled by `chain.starts` (the
-    records laid end to end once, with their window starts:
-    `chain_io.FlatRecords`), `chain.plan` (the plans, then each plan's
-    inputs gathered from them),
-    `run_plan`'s spans, `chain.unpack` (each plan's results) and
-    `chain.scalar` (the deferred records), closed by the counts
-    `chain.records`, `.plans` and `.deferred`.  `stats`, when a dict,
-    is filled with the plans, their (W, N) window widths and padded
-    lengths, the anchor steps and deferred records of the run and the
-    seconds of host preparation, copies, anchor loops and scalar DP:
-    the spans' own, the first device synchronized at each span's end."""
-    with span("chain.batch"):
-        devs = mesh_devices(mesh, device)
-        counts = dict(plans=0, widths=[], steps=0)
-        if stats is not None:
-            stats.update(prep_s=0.0, h2d_s=0.0, loop_s=0.0, d2h_s=0.0,
-                         scalar_s=0.0)
-        lap = Laps(stats, devs[0])
-        results: List[tuple] = [None] * len(records)
-        with span("chain.starts", lap, "prep_s"):
-            flat = chain_io.FlatRecords.of(records, MAX_ITER)
-        with span("chain.plan", lap, "prep_s"):
-            parts = [(plan.length, dev, part) for plan in plan_batches(
-                flat.n, CELL_BUDGET, MAX_BATCH)
-                for dev, part in zip(devs, shard_items(
-                    np.asarray(plan.indices), mesh))]
-        deferred: Dict[int, None] = {}     # ordered, once each
-        for length, dev, part in parts:
-            with span("chain.plan", lap, "prep_s"):
-                host = plan_inputs(flat, part, length)
-                deferred.update((k, None) for k in part[host.over].tolist())
-                counts["plans"] += 1
-                counts["widths"].append((host.W, length))
-                counts["steps"] += int(host.n.max())
-            with device_scope(dev):
-                out = run_plan(host, dev, lap)
-            with span("chain.unpack", lap, "prep_s"):
-                for b, (k, m, o) in enumerate(zip(
-                        part.tolist(), host.n.tolist(), host.over.tolist())):
-                    if not o:
-                        results[k] = tuple(out[:, b, :m])
+    def prepare(flat, idx, N):
+        plan = plan_inputs(flat, idx, N)
+        deferred.update((k, None) for k in idx[plan.over].tolist())
+        counts["plans"] += 1
+        counts["widths"].append((plan.W, N))
+        counts["steps"] += int(plan.n.max())
+        return plan, plan.n
+
+    def finish(flat, lap, results):
         with span("chain.scalar", lap, "scalar_s"):
-            deferred = list(deferred)
-            o = flat.offs
-            sub = scalar_dp([records[k] for k in deferred],
-                            [flat.st[o[k]:o[k + 1]] for k in deferred])
-            for k, res in zip(deferred, sub):
+            idx = np.fromiter(deferred, np.int64, len(deferred))
+            for k, res in zip(idx.tolist(), scalar_dp(flat, idx)):
                 results[k] = res
         counts["deferred"] = len(deferred)
-        for name, n in (("records", len(records)),
-                        ("plans", counts["plans"]),
-                        ("deferred", counts["deferred"])):
-            count(f"chain.{name}", n)
-    if stats is not None:
-        stats.update(counts)
-    return results
+
+    return run_plans(
+        "chain", records, device, stats, mesh, max_batch=MAX_BATCH,
+        cell_budget=CELL_BUDGET,
+        seconds=("prep_s", "h2d_s", "loop_s", "d2h_s", "scalar_s"),
+        counts=counts, emit=("records", "plans", "deferred"), prepare=prepare,
+        upload=upload_plan, dp=window_dp, dp_key="loop_s", wait_key="loop_s",
+        finish=finish)
 
 
 def run(argv: Sequence[str]) -> int:

@@ -37,13 +37,11 @@ import numpy as np
 import torch
 
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import Laps, ROITimer, count, span
+from genarchbench_tpu_torch.core.roi import Laps, ROITimer, span
 from genarchbench_tpu_torch.io import chain_io
-from genarchbench_tpu_torch.kernels.chain import (MAX_ITER, NEG, _log2_floor,
-                                                  pad_planes)
-from genarchbench_tpu_torch.sharding.batching import plan_batches
-from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
-                                                  mesh_devices, shard_items)
+from genarchbench_tpu_torch.kernels.chain import (NEG, _log2_floor,
+                                                  pad_planes, run_plans)
+from genarchbench_tpu_torch.sharding.mesh import Mesh, data_mesh
 
 CHUNK = 128
 TILE = 128
@@ -156,74 +154,47 @@ def fast_chain_batch(records: Sequence[chain_io.ChainRecord],
                      mesh: Optional[Mesh] = None) -> List[tuple]:
     """fast-chain DP over records: [(scores, parents, None)] in order.
 
-    Records go into plans of at most MAX_BATCH records and CELL_BUDGET
-    padded cells; with a mesh, each plan's records split over its
-    devices (`shard_items`).  The call is the span `fast_chain.batch`,
-    tiled by `fast_chain.starts` (the records laid end to end once,
-    with their window starts: `chain_io.FlatRecords`), `fast_chain.plan`
-    (the plans, then each plan's inputs gathered from them) and each plan's
-    `fast_chain.h2d`, `.dp` (the far and near passes), `.wait` (the
-    card's queue drained, on CUDA), `.d2h` and `.unpack` (its results),
-    closed by the count `fast_chain.plans`.  `stats`, when a dict, is
-    filled with the plans, tiles, far chunks and near steps of the run
-    and the seconds of host preparation, copies, far and near passes:
-    the spans' own, the first device synchronized at each span's end."""
-    with span("fast_chain.batch"):
-        devs = mesh_devices(mesh, device)
-        counts = dict(plans=0, tiles=0, far_chunks=0, near_steps=0)
-        if stats is not None:
-            stats.update(prep_s=0.0, h2d_s=0.0, far_s=0.0, near_s=0.0,
-                         d2h_s=0.0)
-        lap = Laps(stats, devs[0])
-        results: List[tuple] = [None] * len(records)
-        with span("fast_chain.starts", lap, "prep_s"):
-            flat = chain_io.FlatRecords.of(records, MAX_ITER)
-        with span("fast_chain.plan", lap, "prep_s"):
-            parts = [(plan.length, dev, part) for plan in plan_batches(
-                flat.n, CELL_BUDGET, MAX_BATCH)
-                for dev, part in zip(devs, shard_items(
-                    np.asarray(plan.indices), mesh))]
-        for length, dev, part in parts:
-            with device_scope(dev):
-                _fast_chain_plan(flat, part, length, dev, lap, counts,
-                                 results)
-        count("fast_chain.plans", counts["plans"])
-    if stats is not None:
-        stats.update(counts)
-    return results
+    `chain.run_plans` runs the plans, of at most MAX_BATCH records and
+    CELL_BUDGET padded cells, by the far and near passes, the spans
+    `fast_chain.far` and `.near` inside `fast_chain.dp`; the count is
+    `fast_chain.plans`.  `stats`, when a dict, is filled with the plans,
+    tiles, far chunks and near steps of the run and the seconds of host
+    preparation, copies, far and near passes (`fast_chain.near` and
+    `.wait`)."""
+    counts = dict(plans=0, tiles=0, far_chunks=0, near_steps=0)
 
-
-def _fast_chain_plan(flat, idx, length, dev, lap, counts, results) -> None:
-    """One plan of the records idx of `flat` on dev, their results written
-    into `results`."""
-    with span("fast_chain.plan", lap, "prep_s"):
+    def prepare(flat, idx, N):
+        """((the planes and the (B,) min(max_dist_x, max_dist_y), bw and
+        avg_qspan; the anchor steps; the far chunks a tile), lengths)."""
         n = flat.n[idx].astype(np.int32)
-        planes = pad_planes(flat, idx, n, length)
+        planes = pad_planes(flat, idx, n, N)
         steps = int(n.max())
         chunks = far_chunks(planes[4], steps)
         for name, v in (("plans", 1), ("tiles", len(chunks)),
                         ("far_chunks", sum(chunks)), ("near_steps", steps)):
             counts[name] += v
-    with span("fast_chain.h2d", lap, "h2d_s"):
-        x_lo, qi, q_span, _, st = torch.from_numpy(planes).to(dev)
-        mdxy, bw, avg = (torch.from_numpy(a).to(dev) for a in (
-            np.minimum(flat.max_dist_x[idx], flat.max_dist_y[idx])
-            .astype(np.int32), flat.bw[idx].astype(np.int32),
-            flat.avg_qspan[idx]))
-    with span("fast_chain.dp"):
-        scores, parents = _fast_chain_device(x_lo, qi, q_span, st, mdxy, bw,
-                                             avg, steps, chunks, lap)
-    with span("fast_chain.wait", lap, "near_s"):
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-    with span("fast_chain.d2h", lap, "d2h_s"):
-        out = torch.stack([scores, parents]).cpu().numpy()
-    with span("fast_chain.unpack", lap, "prep_s"):
-        # row b's first n[b] as a slice of the flat rows, by plain ints
-        sc, pa = out.reshape(2, -1)
-        for k, a, e in zip(idx.tolist(), range(0, sc.size, length),
-                           (np.arange(0, sc.size, length) + n).tolist()):
-            results[k] = (sc[a:e], pa[a:e], None)
+        mdxy = np.minimum(flat.max_dist_x[idx], flat.max_dist_y[idx])
+        arrays = (planes, mdxy.astype(np.int32),
+                  flat.bw[idx].astype(np.int32), flat.avg_qspan[idx])
+        return (arrays, steps, chunks), n
+
+    return run_plans(
+        "fast_chain", records, device, stats, mesh, max_batch=MAX_BATCH,
+        cell_budget=CELL_BUDGET,
+        seconds=("prep_s", "h2d_s", "far_s", "near_s", "d2h_s"),
+        counts=counts, emit=("plans",), prepare=prepare, upload=_upload,
+        dp=_plan_dp, dp_key=None, wait_key="near_s")
+
+
+def _upload(host, dev):
+    return [torch.from_numpy(a).to(dev) for a in host[0]]
+
+
+def _plan_dp(host, inputs, lap):
+    _, steps, chunks = host
+    (x_lo, qi, q_span, _, st), mdxy, bw, avg = inputs
+    return _fast_chain_device(x_lo, qi, q_span, st, mdxy, bw, avg, steps,
+                              chunks, lap)
 
 
 def run(argv: Sequence[str]) -> int:

@@ -153,9 +153,8 @@ def library() -> ctypes.CDLL:
                 ctypes.c_double, p32, p32, pu8]
             lib.chain_dp_scalar.restype = ctypes.c_int
             lib.chain_dp_scalar.argtypes = [
-                i64, p64, p64, ctypes.POINTER(ctypes.c_double), p32, p32,
-                p32, p32, ctypes.POINTER(ctypes.c_uint32), p32, pu8, pu8,
-                p32, p32, p32, p32]
+                i64, p64, p64, ctypes.POINTER(ctypes.c_float), p32, p32,
+                p32, p32, pu64, pu64, p32, p32, p32, p32]
             lib.sais_u8.restype = ctypes.c_int
             lib.sais_u8.argtypes = [pu8, i64, i64, p64]
             pf32 = ctypes.POINTER(ctypes.c_float)
@@ -299,39 +298,37 @@ def chain_gap_corr(avg32: np.ndarray, t_size: int, ck: int,
     return corr_dd, corr_delta, over.astype(bool)
 
 
-def chain_dp_scalar(ns, avg, mdx, mdy, bw, nsegs, x_lo, qi, span, sid, st):
-    """The exact scalar chain DP over records laid end to end: record b
-    has ns[b] anchors, per-record parameters avg (the f32 avg_qspan),
-    mdx, mdy, bw, nsegs, and flat anchor planes x_lo (uint32), qi,
-    span and sid (uint8) and window starts st.  Returns flat
-    (scores, parents, peaks) int32."""
-    ns = np.ascontiguousarray(ns, np.int64)
+def chain_dp_scalar(x, y, st, off, ns, avg, mdx, mdy, bw, nsegs):
+    """The exact scalar chain DP over records at flat offsets: record b
+    holds the ns[b] anchors at offset off[b] of the uint64 x and y and
+    the int32 window starts st, decoded in C as `chain_gather_planes`
+    decodes them, with per-record parameters avg (the f32 avg_qspan),
+    mdx, mdy, bw and nsegs.  Returns (scores, parents, peaks) int32, the
+    records' end to end in their order."""
+    A = len(x)
+    x = _flat("x", x, np.uint64, A)
+    y = _flat("y", y, np.uint64, A)
+    st = _flat("st", st, np.int32, A)
+    ns = np.ascontiguousarray(ns, np.int64).ravel()
     B = len(ns)
-    if (ns < 0).any():
-        raise ValueError("ns must be non-negative")
-    offs = np.zeros(B, np.int64)
-    np.cumsum(ns[:-1], out=offs[1:])
-    M = int(ns.sum())
-    avg = _flat("avg", avg, np.float64, B)
+    off = _flat("off", off, np.int64, B)
+    if ((ns < 0) | (off < 0) | (off + ns > A)).any():
+        raise ValueError("records must lie in the flat arrays")
+    avg = _flat("avg", avg, np.float32, B)
     per = [_flat(nm, a, np.int32, B) for nm, a in
            (("mdx", mdx), ("mdy", mdy), ("bw", bw), ("nsegs", nsegs))]
-    x_lo = _flat("x_lo", x_lo, np.uint32, M)
-    qi = _flat("qi", qi, np.int32, M)
-    span = _flat("span", span, np.uint8, M)
-    sid = _flat("sid", sid, np.uint8, M)
-    st = _flat("st", st, np.int32, M)
-    if ((st < 0) | (st > np.arange(M) - np.repeat(offs, ns))).any():
-        raise ValueError("window starts must lie in [0, i]")
+    M = int(ns.sum())
     scores = np.zeros(M, np.int32)
     parents = np.zeros(M, np.int32)
     peaks = np.zeros(M, np.int32)
     rc = library().chain_dp_scalar(
-        B, _ptr(ns, ctypes.c_int64), _ptr(offs, ctypes.c_int64),
-        _ptr(avg, ctypes.c_double), *(_ptr(a, ctypes.c_int32) for a in per),
-        _ptr(x_lo, ctypes.c_uint32), _ptr(qi, ctypes.c_int32),
-        _ptr(span, ctypes.c_uint8), _ptr(sid, ctypes.c_uint8),
+        B, _ptr(ns, ctypes.c_int64), _ptr(off, ctypes.c_int64),
+        _ptr(avg, ctypes.c_float), *(_ptr(a, ctypes.c_int32) for a in per),
+        _ptr(x, ctypes.c_uint64), _ptr(y, ctypes.c_uint64),
         _ptr(st, ctypes.c_int32), _ptr(scores, ctypes.c_int32),
         _ptr(parents, ctypes.c_int32), _ptr(peaks, ctypes.c_int32))
+    if rc == -2:
+        raise ValueError("window starts must lie in [0, i]")
     if rc != 0:
         raise RuntimeError("chain_dp_scalar: out of memory")
     return scores, parents, peaks

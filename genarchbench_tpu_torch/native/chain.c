@@ -124,32 +124,43 @@ void chain_gap_corr(int64_t nb, const float *avg32, int64_t t_size,
  * (host_kernel.cpp:50-93): per anchor, a descending scan of its window
  * with the strict sc > max_f rule (ties keep the largest j), the t[]
  * skip markers with MAX_SKIP = 25, and the f64 gap cost.  Record b
- * spans [offs[b], offs[b] + ns[b]) of every flat array.  Returns 0, or
- * -1 when out of memory. */
-int chain_dp_scalar(int64_t B, const int64_t *ns, const int64_t *offs,
-                    const double *avg, const int32_t *mdx_a,
+ * holds the ns[b] anchors at flat offset off[b] of x, y and st_flat,
+ * decoded as chain_gather_planes decodes them into rows beside t[];
+ * its scores, parents and peaks follow record b - 1's.
+ * Returns 0, -1 when out of memory, or -2 when a window start of the
+ * record about to be scanned lies outside [0, i].  The caller checks
+ * ns[b] >= 0 and off[b] + ns[b] <= the flat length. */
+int chain_dp_scalar(int64_t B, const int64_t *ns, const int64_t *off,
+                    const float *avg, const int32_t *mdx_a,
                     const int32_t *mdy_a, const int32_t *bw_a,
-                    const int32_t *nsegs_a, const uint32_t *x_lo,
-                    const int32_t *qi, const uint8_t *span,
-                    const uint8_t *sid, const int32_t *st_flat,
+                    const int32_t *nsegs_a, const uint64_t *x,
+                    const uint64_t *y, const int32_t *st_flat,
                     int32_t *scores, int32_t *parents, int32_t *peaks) {
-    for (int64_t b = 0; b < B; b++) {
-        const uint32_t *xl = x_lo + offs[b];
-        const int32_t *q = qi + offs[b];
-        const uint8_t *sp = span + offs[b];
-        const uint8_t *sd = sid + offs[b];
-        const int32_t *st = st_flat + offs[b];
-        int32_t *sc = scores + offs[b];
-        int32_t *par = parents + offs[b];
-        int32_t *pk = peaks + offs[b];
+    for (int64_t b = 0, o = 0; b < B; o += ns[b++]) {
+        const uint64_t *xb = x + off[b], *yb = y + off[b];
+        const int32_t *st = st_flat + off[b];
+        int32_t *sc = scores + o, *par = parents + o, *pk = peaks + o;
         int64_t n = ns[b];
-        double av = (double)(float)avg[b];
+        double av = (double)avg[b];
         int32_t mdx = mdx_a[b], mdy = mdy_a[b], bw = bw_a[b];
         int32_t nsegs = nsegs_a[b];
         int32_t *t = (int32_t *)malloc((size_t)(n > 0 ? n : 1)
-                                       * sizeof(int32_t));
+                                       * (3 * sizeof(int32_t) + 2));
         if (!t) return -1;
-        for (int64_t i = 0; i < n; i++) t[i] = -1;
+        uint32_t *xl = (uint32_t *)(t + n);
+        int32_t *q = (int32_t *)(xl + n);
+        uint8_t *sp = (uint8_t *)(q + n), *sd = sp + n;
+        for (int64_t i = 0; i < n; i++) {
+            if (st[i] < 0 || st[i] > i) {
+                free(t);
+                return -2;
+            }
+            t[i] = -1;
+            xl[i] = (uint32_t)xb[i];
+            q[i] = (int32_t)(uint32_t)yb[i];
+            sp[i] = (uint8_t)(yb[i] >> 32);
+            sd[i] = (uint8_t)(yb[i] >> 48);
+        }
         for (int64_t i = 0; i < n; i++) {
             int32_t max_f = sp[i], max_j = -1, nskip = 0;
             for (int64_t j = i - 1; j >= st[i]; j--) {

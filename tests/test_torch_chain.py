@@ -198,9 +198,9 @@ def test_skip_break_input_reaches_the_break():
     the skip heuristic, in the kernel and in the C scalar DP alike."""
     ours, theirs = records(skip_break_text())
     without = jchain.chain_batch(theirs, with_heuristics=False)
-    ws = chain_io.window_starts_all(ours, chain.MAX_ITER)
+    flat = chain_io.FlatRecords.of(ours, chain.MAX_ITER)
     for got in (chain.chain_batch(ours, device="cpu"),
-                chain.scalar_dp(ours, ws)):
+                chain.scalar_dp(flat, np.arange(len(ours)))):
         assert any(not np.array_equal(a[1], b[1])
                    for a, b in zip(got, without))
 
@@ -218,23 +218,42 @@ def test_cli_matches_jax_run(tmp_path, monkeypatch, capsys, name):
         (tmp_path / "jax.txt").read_bytes()
 
 
+def run_plan(plan):
+    """The windowed kernel on one plan on the CPU, as `chain.run_plans`
+    runs it: (3, B, N) scores, parents and peaks."""
+    dev = torch.device("cpu")
+    return torch.stack(chain.window_dp(plan, chain.upload_plan(plan, dev))) \
+        .numpy()
+
+
 @pytest.mark.parametrize("name", ["set0", "set1", "set2", "skip-break",
-                                  "ties", "dense", "u32-wrap"])
+                                  "ties", "dense", "u32-wrap",
+                                  "shard-padding"])
 def test_kernels_agree_on_a_plan(name):
     """The kernel at the plan's window width, at the full padded width
-    and the C scalar DP on the same plan."""
-    recs, _ = records(INPUTS[name]())
-    ws = chain_io.window_starts_all(recs, chain.MAX_ITER)
-    N = 1 << int(np.ceil(np.log2(max(r.n for r in recs))))
-    plan = chain.plan_inputs(chain_io.FlatRecords.of(recs, chain.MAX_ITER),
-                             np.arange(len(recs)), N)
+    and the C scalar DP on the same plan, and the C scalar DP on the
+    plan's records read at their offsets in the whole batch's flat view
+    against the same records laid out alone.  "shard-padding" takes
+    set1's records out of order, the last repeated as a mesh's shard
+    padding repeats it (`sharding/mesh.py::shard_index`)."""
+    recs, _ = records(INPUTS["set1" if name == "shard-padding"
+                             else name]())
+    idx = (np.array([3, 0, 17, 9, 24, 24, 24]) if name == "shard-padding"
+           else np.arange(len(recs)))
+    flat = chain_io.FlatRecords.of(recs, chain.MAX_ITER)
+    N = 1 << int(np.ceil(np.log2(max(recs[k].n for k in idx))))
+    plan = chain.plan_inputs(flat, idx, N)
     assert not plan.over.any()
     assert (plan.W == N) == (name == "dense")
-    win = chain.run_plan(plan, torch.device("cpu"))
-    full = chain.run_plan(dataclasses.replace(plan, W=N), torch.device("cpu"))
+    win = run_plan(plan)
+    full = run_plan(dataclasses.replace(plan, W=N))
     np.testing.assert_array_equal(win, full)
-    for b, res in enumerate(chain.scalar_dp(recs, ws)):
-        np.testing.assert_array_equal(win[:, b, :recs[b].n], np.stack(res))
+    alone = chain.scalar_dp(chain_io.FlatRecords.of(
+        [recs[k] for k in idx], chain.MAX_ITER), np.arange(len(idx)))
+    for b, res in enumerate(chain.scalar_dp(flat, idx)):
+        np.testing.assert_array_equal(win[:, b, :recs[idx[b]].n],
+                                      np.stack(res))
+        np.testing.assert_array_equal(np.stack(res), np.stack(alone[b]))
 
 
 def test_clz_boundaries(monkeypatch):
@@ -246,12 +265,11 @@ def test_clz_boundaries(monkeypatch):
     monkeypatch.setattr(chain, "gap_corrections", lambda avg32, t, ck=4: (
         np.full((len(avg32), ck), -1, np.int32),
         np.zeros((len(avg32), ck), np.int32), np.zeros(len(avg32), bool)))
-    ws = chain_io.window_starts_all(recs, chain.MAX_ITER)
-    plan = chain.plan_inputs(chain_io.FlatRecords.of(recs, chain.MAX_ITER),
-                             np.arange(len(recs)), 64)
+    flat = chain_io.FlatRecords.of(recs, chain.MAX_ITER)
+    plan = chain.plan_inputs(flat, np.arange(len(recs)), 64)
     assert plan.W == 64
-    win = chain.run_plan(plan, torch.device("cpu"))
-    for b, res in enumerate(chain.scalar_dp(recs, ws)):
+    win = run_plan(plan)
+    for b, res in enumerate(chain.scalar_dp(flat, np.arange(len(recs)))):
         np.testing.assert_array_equal(win[:, b, :recs[b].n], np.stack(res))
     # the JAX windowed kernel on the same arrays
     x_lo, qi, span, sid, st = plan.planes
@@ -318,12 +336,13 @@ def test_linear_gap_equals_f64_table():
 
 
 def test_scalar_dp_checks_inputs():
+    x = np.array([1, 2], np.uint64)
+    y = np.array([15 << 32 | 1, 15 << 32 | 2], np.uint64)
+    params = ([20.0], [5000], [5000], [500], [1])
     with pytest.raises(ValueError, match="window starts"):
-        native.chain_dp_scalar([2], [20.0], [5000], [5000], [500], [1],
-                               [1, 2], [1, 2], [15, 15], [0, 0], [0, 2])
-    with pytest.raises(ValueError, match="x_lo must be"):
-        native.chain_dp_scalar([2], [20.0], [5000], [5000], [500], [1],
-                               [1], [1, 2], [15, 15], [0, 0], [0, 0])
+        native.chain_dp_scalar(x, y, [0, 2], [0], [2], *params)
+    with pytest.raises(ValueError, match="lie in the flat arrays"):
+        native.chain_dp_scalar(x, y, [0, 0], [1], [2], *params)
 
 
 def test_failed_native_build_raises(tmp_path, monkeypatch):

@@ -13,6 +13,7 @@ from genarchbench_tpu.kernels import fast_chain as jfc
 from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.kernels import fast_chain
 from genarchbench_tpu_torch.kernels.chain import MAX_ITER
+from genarchbench_tpu_torch.sharding.batching import plan_batches
 from tests.synth import gen_chain_input
 from tests.test_torch_chain import INPUTS, assert_same, records
 from tests.torch_chain_inputs import boundary_text, clz_text
@@ -69,7 +70,7 @@ def test_fast_chain_batch_equal(name):
     assert all(g[0].dtype == g[1].dtype == np.int32 and g[2] is None
                for g in got)
     assert stats["near_steps"] == sum(
-        max(ours[k].n for k in p.indices) for p in fast_chain.plan_batches(
+        max(ours[k].n for k in p.indices) for p in plan_batches(
             [r.n for r in ours], fast_chain.CELL_BUDGET, fast_chain.MAX_BATCH))
     if name == "ties":       # the later of the tied pair wins, far or near
         assert got[0][1][128] == 127 and got[0][1][256] == 255
