@@ -302,7 +302,7 @@ def kernel_name(mangled: str) -> str:
                 if tmpl.group(1) == "bpm_wavefront"
                 else f"bsw_rows<K={tmpl.group(2)}>")
     for short in ("bpm_pack_codes", "bpm_generic", "bsw_wide_kernel",
-                  "wfa_forward_kernel"):
+                  "wfa_forward_kernel", "wfa_backtrace_kernel"):
         if short in mangled:
             return short
     return mangled
@@ -404,6 +404,7 @@ def reset_launch_counts() -> None:
     bpm_cuda.LAUNCHES = 0
     bsw_cuda.LAUNCHES = 0
     wfa_cuda.LAUNCHES = 0
+    wfa_cuda.BT_LAUNCHES = 0
 
 
 def timing_line(text: str, prefix: str) -> str:
@@ -668,9 +669,12 @@ def profiled(fn):
 def wfa_phase(card: str) -> dict:
     """wfa through `cli run wfa` at the JAX bench's input and two small
     ones, each checked by the sorted rule against the port's own CPU run;
-    then a warm run's split and its kernel launches per step."""
+    then a warm run's split and its kernel launches per step, and the
+    score-loop and backtrace kernels on one 4,096-pair chunk beside
+    their torch-op versions."""
     import numpy as np
     import torch
+    from genarchbench_tpu_torch import native
     from genarchbench_tpu_torch.core.check import check_sorted
     from genarchbench_tpu_torch.io.seqpair_io import SeqPairs, read_seqpairs
     from genarchbench_tpu_torch.kernels import _build, wfa, wfa_cuda
@@ -707,7 +711,7 @@ def wfa_phase(card: str) -> dict:
     wfa.wfa_batch(bench)                          # warm
     torch.cuda.synchronize()
     stats = {}
-    wfa_cuda.LAUNCHES = 0
+    wfa_cuda.LAUNCHES = wfa_cuda.BT_LAUNCHES = 0
     t0 = time.perf_counter()
     wfa.wfa_batch(bench, stats=stats)
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -715,6 +719,10 @@ def wfa_phase(card: str) -> dict:
     if wfa_cuda.LAUNCHES != stats["chunks"] + stats["resumes"]:
         fail(f"wfa: {wfa_cuda.LAUNCHES} kernel launches for "
              f"{stats['chunks']} chunks and {stats['resumes']} resumes")
+    if wfa_cuda.BT_LAUNCHES != stats["chunks"]:
+        fail(f"wfa: {wfa_cuda.BT_LAUNCHES} backtrace kernel launches for "
+             f"{stats['chunks']} chunks")
+    bt_launches_per_chunk = wfa_cuda.BT_LAUNCHES / stats["chunks"]
     # the kernel alone on the second chunk's shapes (cap 128), beside the
     # torch-op loop on the same chunk
     chunk = SeqPairs(bench.patterns[:4096], bench.texts[:4096])
@@ -736,8 +744,40 @@ def wfa_phase(card: str) -> dict:
     fw = wfa._forward_chunk(*t, 128, 4, 6, 2, 0, 0)
     if fw.fscore.tolist() != plain.fscore.tolist():
         fail("wfa: the kernel's final scores vs the torch-op loop's")
+    # the backtrace kernel on the same chunk's store, beside the torch
+    # walk: equal records (zeros past the torch walk's steps) and CIGARs
+    T = wfa._backtrace_steps(fw, 4, 2)
+    bt_args = (fw.store, fw.fscore, fw.foff, t[2], t[3])
+    ran, *walk = wfa._wfa_backtrace(*bt_args, K0=fw.K0, x=4, o=6, e=2,
+                                    max_steps=T)
+    nmats, ops, lanes, longest = (r.cpu() for r in wfa_cuda.wfa_backtrace(
+        *bt_args, fw.K0, 4, 6, 2, T))
+    walk = [r.cpu() for r in walk]
+    if not (torch.equal(nmats[:, :ran], walk[0])
+            and torch.equal(ops[:, :ran], walk[1])
+            and not nmats[:, ran:].any() and not ops[:, ran:].any()
+            and torch.equal(lanes, torch.stack(walk[2:]))):
+        fail("wfa: the backtrace kernel's records vs the torch walk's")
+    if native.wfa_cigars(*(a.numpy() for a in (nmats, ops, *lanes))) != \
+            native.wfa_cigars(*(a.numpy() for a in walk)):
+        fail("wfa: the backtrace kernel's CIGARs vs the torch walk's")
+
+    def bt_launch():
+        return wfa_cuda.wfa_backtrace(*bt_args, fw.K0, 4, 6, 2, T)
+
+    # CUDA events over back-to-back calls read the host's pace where a
+    # call's enqueue outlasts the kernel; the profiler reads the kernel
+    bt_kernel_ms = event_ms(bt_launch, 20)
+    bt_device_ms = device_ms(bt_launch, ["wfa_backtrace_kernel"], 20)
+    bt_plain_ms = event_ms(lambda: wfa._wfa_backtrace(
+        *bt_args, K0=fw.K0, x=4, o=6, e=2, max_steps=T), 3)
+    # its bound: a store word an active step (inside the alignment every
+    # active step records an op), the records written, the lanes' inputs
+    bt_bytes = 4 * int((ops != 0).sum()) + 5 * ops.numel() \
+        + (20 + 16) * len(ids)
+    bt_bound_ms, bt_bound_by = bound_ms(bt_bytes, 0)
     ptxas = [ln for ln in ptxas_summary(
-        _build.build_dir() / "ptxas.txt") if ln.startswith("wfa_forward")]
+        _build.build_dir() / "ptxas.txt") if ln.startswith("wfa_")]
     prof, prof_ms = profiled(lambda: wfa.wfa_batch(bench))
     fwd = launches_in_spans(prof, "wfa.forward")
     bt = launches_in_spans(prof, "wfa.backtrace")
@@ -776,7 +816,14 @@ def wfa_phase(card: str) -> dict:
                // stats["chunks"],
                kernel_ms_4096=kernel_ms, torch_loop_ms_4096=plain_ms,
                kernel_steps_4096=fw.steps, kernel_ptxas=ptxas,
-               launches_per_bt_step=bt / max(stats["bt_steps"], 1),
+               bt_kernel_launches_per_chunk=bt_launches_per_chunk,
+               launches_backtrace_per_chunk=bt / stats["chunks"],
+               bt_kernel_ms_4096=bt_kernel_ms,
+               bt_device_ms_4096=bt_device_ms,
+               bt_torch_walk_ms_4096=bt_plain_ms,
+               bt_longest_walk_4096=int(longest), bt_steps_4096=T,
+               bt_torch_walk_steps_4096=ran, bt_bound_ms_4096=bt_bound_ms,
+               bt_bound_by=bt_bound_by, bt_bytes_4096=bt_bytes,
                profiled_device_ms=kernel_us / 1e3, profiled_ms=prof_ms,
                device_busy_share=kernel_us / 1e3 / prof_ms,
                device_events=sum(c for c, _ in device.values()),
@@ -799,6 +846,17 @@ def wfa_phase(card: str) -> dict:
           f"({fw.steps} steps): kernel {kernel_ms:.4f} ms (CUDA events, "
           f"mean of 20), torch-op loop {plain_ms:.1f} ms; ptxas: "
           + " | ".join(ptxas))
+    print(f"wfa backtrace kernel: {bt_launches_per_chunk:.2f} launches a "
+          f"chunk ({bt / stats['chunks']:.2f} launch calls a chunk in the "
+          f"wfa.backtrace spans); on the same chunk, T {T}, longest walk "
+          f"{int(longest)} steps (the torch walk ran {ran}): kernel "
+          f"{bt_kernel_ms:.4f} ms a call (CUDA events, mean of 20), "
+          f"device {bt_device_ms} ms (profiler, mean of 20; "
+          f"{(bt_device_ms or 0) * 1e3 / max(int(longest), 1):.3f} us a "
+          f"step of the longest walk), bound {bt_bound_ms:.5f} ms "
+          f"({bt_bound_by}, "
+          f"{bt_bytes} bytes), torch walk {bt_plain_ms:.3f} ms (mean of "
+          f"3); records and CIGARs equal")
     print("wfa forward ms per score step by chunk width: " + ", ".join(
         f"{n} pairs {v:.3f}" for n, v in per_step.items()))
     print(f"wfa profiled run: {row['device_events']} device events, "

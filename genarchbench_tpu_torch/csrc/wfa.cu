@@ -1,5 +1,7 @@
-// Gap-affine WFA's score loop (complete wavefronts): one warp a pair,
-// each pair stepping to its own final score.
+// Gap-affine WFA on the card, two kernels a chunk: the score loop
+// (complete wavefronts), one warp a pair, each pair stepping to its own
+// final score; then the backtrace over the store it wrote, one thread a
+// pair (its note is further down).
 //
 // Replaces: no TPU kernel.  The JAX package runs the loop as a
 // lax.while_loop of XLA ops (genarchbench_tpu/kernels/wfa.py::
@@ -365,5 +367,159 @@ extern "C" int genarch_wfa_forward(const void* pat, const void* txt,
     if (err != cudaSuccess) return err;
   }
   wfa_forward_kernel<<<B, 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Gap-affine WFA's backtrace over the store the score loop wrote: one
+// thread a pair, each walking its own store from its final score.
+//
+// Replaces: no TPU kernel.  The JAX package runs the walk as lock-step
+// XLA ops (genarchbench_tpu/kernels/wfa.py::_wfa_backtrace); the port's
+// torch-op version of it (kernels/wfa.py::_wfa_backtrace) is this
+// kernel's plain version and still runs CPU tensors.  Its semantics are
+// the reference's (affine_wavefront_backtrace.c:280-387): the op
+// decisions were made by the score loop with the reference's priority
+// (del_ext > del_open > ins_ext > ins_open > mismatch) and stored as
+// code | run << 8, so a step reads one word.
+//
+// What bounds it on this card: the latency of one pair's chain of
+// dependent loads.  Each step's word gives the next step's (score,
+// diagonal), so a pair's walk is some 60 loads in a row, each a trip
+// to device memory; the bytes (a word a step) and the operations are
+// nothing.  Run as batched torch ops, each step is some 117 launches
+// over (B,) lanes, enqueued by the host, every lane stepping as long as
+// the batch's longest walk.
+//
+// What the design does about it: a thread takes one pair and runs its
+// whole walk, so a launch does a chunk and the card keeps thousands of
+// independent chains in flight at once, one a thread, hiding each
+// load's latency behind the others'.  Blocks are small (kBtThreads) so
+// that a 4,096-pair chunk spreads over every SM.  A thread writes its
+// pair's row of records, zeros after the pair's last step (no memset),
+// and reads the store only on an active step: the store is written only
+// at the diagonals [lo, hi] of each score up to the pair's final score,
+// which is where an active step's (score, diagonal) lies.
+namespace {
+
+constexpr int kBtThreads = 32;
+constexpr int kOpNone = 0, kOpD = 1, kOpI = 2, kOpX = 3;  // record ops
+constexpr int kBtM = 0, kBtI = 1, kBtD = 2;               // the walk's matrix
+
+struct BtParams {
+  const int* __restrict__ store;   // (B, Scap, D) code | run << 8
+  const int* __restrict__ fscore;  // (B,)
+  const int* __restrict__ foff;    // (B,)
+  const int* __restrict__ plen;    // (B,)
+  const int* __restrict__ tlen;    // (B,)
+  int* nmats;                      // (B, T) match runs
+  int8_t* ops;                     // (B, T) ops
+  int* lanes;                      // (5, B): gap_t, gap_v, fm, fd, fi
+  int* summary;                    // (1,) the longest walk
+  int B, Scap, D, K0, x, o, e, T;
+};
+
+// Whether the walk at diagonal index j and offset off lies inside the
+// alignment (affine_wavefront_backtrace.c's valid location).
+__device__ __forceinline__ bool valid_loc(int j, int off, int K0, int pl,
+                                          int tl) {
+  const int v = off - (j - K0);
+  return v > 0 && v <= pl && off > 0 && off <= tl;
+}
+
+__global__ void __launch_bounds__(kBtThreads)
+wfa_backtrace_kernel(BtParams p) {
+  const int b = blockIdx.x * kBtThreads + threadIdx.x;
+  if (b >= p.B) return;
+  const int K0 = p.K0, D = p.D, Scap = p.Scap;
+  const int pl = p.plen[b], tl = p.tlen[b];
+  const int oe = p.o + p.e;
+  const int jak = min(max(tl - pl + K0, 0), D - 1);   // alignment diagonal
+  const int* st = p.store + (size_t)b * Scap * D;
+  int* nm_row = p.nmats + (size_t)b * p.T;
+  int8_t* op_row = p.ops + (size_t)b * p.T;
+
+  int sc = p.fscore[b], j = jak, off = p.foff[b], bty = kBtM;
+  bool valid = valid_loc(jak, off, K0, pl, tl);
+  int gap_t = -1, gap_v = 0;
+  int t = 0;
+  for (; t < p.T; ++t) {
+    // a finished walk stays finished: every later step records nothing
+    if (!(off - (j - K0) > 0 && off > 0 && sc > 0)) break;
+    const bool now = valid_loc(j, off, K0, pl, tl);
+    if (!valid && now) {   // the one invalid -> valid gap
+      gap_t = t;
+      gap_v = j - jak;     // > 0 a 'D' run, < 0 an 'I' run
+    }
+    valid = valid || now;
+    const int word = __ldg(st + (size_t)min(max(sc, 0), Scap - 1) * D +
+                           min(max(j, 0), D - 1));
+    const int opm = word & 7, opi = (word >> 3) & 1, opd = (word >> 4) & 1;
+    const int ext = word >> 8;
+    const bool isM = bty == kBtM, isI = bty == kBtI, isD = bty == kBtD;
+    int nm = 0;
+    if (isM) {
+      nm = ext;
+      off -= ext;
+    }
+    const bool de = (isM && opm == kDE) || (isD && opd == 0);
+    const bool dop = (isM && opm == kDO) || (isD && opd == 1);
+    const bool ie = (isM && opm == kIE) || (isI && opi == 0);
+    const bool io = (isM && opm == kIO) || (isI && opi == 1);
+    const bool mm = isM && opm == kMM;
+    int op = de || dop ? kOpD : ie || io ? kOpI : mm ? kOpX : kOpNone;
+    if (!valid) op = kOpNone;   // suppressed outside the alignment
+    sc = de || ie ? sc - p.e : dop || io ? sc - oe : mm ? sc - p.x : sc;
+    j = de || dop ? j + 1 : ie || io ? j - 1 : j;
+    if (ie || io || mm) off -= 1;
+    bty = de ? kBtD : ie ? kBtI : dop || io || mm ? kBtM : bty;
+    nm_row[t] = nm;
+    op_row[t] = (int8_t)op;
+  }
+  const int steps = t;
+  for (; t < p.T; ++t) {
+    nm_row[t] = 0;
+    op_row[t] = 0;
+  }
+  const int vf = off - (j - K0);
+  p.lanes[b] = gap_t;
+  p.lanes[p.B + b] = gap_v;
+  p.lanes[2 * p.B + b] = sc == 0 ? off : 0;
+  p.lanes[3 * p.B + b] = sc != 0 ? max(vf, 0) : 0;
+  p.lanes[4 * p.B + b] = sc != 0 ? max(off, 0) : 0;
+  atomicMax(p.summary, steps);
+}
+
+}  // namespace
+
+// One thread a pair, in blocks of kBtThreads, on `stream`.  store (B,
+// Scap, D) int32 as genarch_wfa_forward wrote it; fscore, foff, plen,
+// tlen (B,) int32; nmats (B, T) int32 and ops (B, T) int8, written
+// whole; lanes (5, B) int32: gap_t, gap_v and the final runs fm, fd,
+// fi; summary (1,) int32, zeroed here before the launch: the most steps
+// a pair's walk took.
+// Returns the first CUDA error (0 on success).
+extern "C" int genarch_wfa_backtrace(const void* store, const void* fscore,
+                                     const void* foff, const void* plen,
+                                     const void* tlen, void* nmats,
+                                     void* ops, void* lanes, void* summary,
+                                     int B, int Scap, int D, int K0, int x,
+                                     int o, int e, int T, void* stream_) {
+  if (B <= 0) return cudaGetLastError();
+  BtParams p{static_cast<const int*>(store),
+             static_cast<const int*>(fscore),
+             static_cast<const int*>(foff),
+             static_cast<const int*>(plen),
+             static_cast<const int*>(tlen),
+             static_cast<int*>(nmats),
+             static_cast<int8_t*>(ops),
+             static_cast<int*>(lanes),
+             static_cast<int*>(summary),
+             B, Scap, D, K0, x, o, e, T};
+  auto stream = static_cast<cudaStream_t>(stream_);
+  cudaError_t err = cudaMemsetAsync(summary, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const int blocks = (B + kBtThreads - 1) / kBtThreads;
+  wfa_backtrace_kernel<<<blocks, kBtThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }

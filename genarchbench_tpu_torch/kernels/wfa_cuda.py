@@ -1,14 +1,18 @@
-"""Gap-affine WFA's score loop: the wrapper of the CUDA kernel
-(csrc/wfa.cu).  Its plain version is the torch-op loop of
-kernels/wfa.py (`_wfa_forward`), which CPU tensors run.
+"""Gap-affine WFA on the card: the wrappers of the two CUDA kernels of
+csrc/wfa.cu.  Their plain versions are the torch-op loops of
+kernels/wfa.py (`_wfa_forward`, `_wfa_backtrace`), which CPU tensors
+run.
 
-One warp a pair runs the pair's loop extend -> reduce -> end check ->
-compute s+1 to its own final score or the score cap, and writes the
-backtrace store that `_wfa_backtrace` reads.  The pair's wavefront
+The score loop (`wfa_forward`): one warp a pair runs the pair's loop
+extend -> reduce -> end check -> compute s+1 to its own final score or
+the score cap, and writes the backtrace store.  The pair's wavefront
 rings and bounds (its workspace) and its bases live in shared memory
 where two pairs' fit on one SM, else the workspaces go to a device
 scratch; the choice follows the workspace's size, which the shapes and
 penalties give.
+
+The backtrace (`wfa_backtrace`): one thread a pair walks its own store
+from its final score and writes the records the CIGAR assembly reads.
 
 Layout:
   pat (B, Lp), txt (B, Lt) uint8  codes, padded; Lp and Lt multiples of 8
@@ -17,6 +21,10 @@ Layout:
                              every score up to a pair's final score
    fscore, foff (B,) int32, and a summary (4,) int64: unfinished pairs,
    max final score, the sum and the max of the score steps the pairs ran.
+-> nmats (B, T) int32, ops (B, T) int8  a pair's match run and op of each
+                             step, zeros after its walk's last step
+   lanes (5, B) int32: gap_t, gap_v, fm, fd, fi, and a summary (1,)
+   int32: the most steps a pair's walk took.
 """
 
 from __future__ import annotations
@@ -27,18 +35,20 @@ import torch
 
 from genarchbench_tpu_torch.kernels import _build
 
-# launches of the CUDA kernel in this process (a run shows with it that
-# the main path went through the kernel)
+# launches of the score-loop and backtrace kernels in this process (a
+# run shows with them that the main path went through the kernels)
 LAUNCHES = 0
+BT_LAUNCHES = 0
 
 
 def _lib():
     lib = _build.library()
-    fn = lib.genarch_wfa_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn, ptrs, ints in ((lib.genarch_wfa_forward, 9, 12),
+                           (lib.genarch_wfa_backtrace, 9, 8)):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -129,3 +139,55 @@ def wfa_forward(pat, txt, plen, tlen, K0: int, D: int, Scap: int, x: int,
     LAUNCHES += 1
     _build.check(err, "wfa kernel")
     return store, fscore, foff, summary
+
+
+def _check_backtrace(store, fscore, foff, plen, tlen, K0: int, T: int):
+    if store.dtype != torch.int32 or store.dim() != 3 \
+            or not store.is_contiguous():
+        raise ValueError(f"store must be a contiguous (B, Scap, D) "
+                         f"torch.int32, got {store.dtype} "
+                         f"{tuple(store.shape)}")
+    B, _, D = store.shape
+    for name, t in (("fscore", fscore), ("foff", foff), ("plen", plen),
+                    ("tlen", tlen)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({B},) "
+                             f"torch.int32, got {t.dtype} {tuple(t.shape)}")
+        if t.device != store.device:
+            raise ValueError(f"{name} is on {t.device}, store on "
+                             f"{store.device}")
+    if not 0 <= K0 < D or T < 0:
+        raise ValueError(f"K0 {K0} must lie in [0, {D}) and T {T} >= 0")
+
+
+def wfa_backtrace(store, fscore, foff, plen, tlen, K0: int, x: int, o: int,
+                  e: int, T: int):
+    """The backtrace of a chunk of CUDA tensors over the store the score
+    loop wrote at diagonal origin K0, at most T steps a pair: (nmats,
+    ops, lanes, summary), enqueued on the current stream."""
+    global BT_LAUNCHES
+    if store.device.type != "cuda":
+        raise ValueError(f"wfa_backtrace runs on cuda, not {store.device}")
+    _check_backtrace(store, fscore, foff, plen, tlen, K0, T)
+    B, Scap, D = store.shape
+    dev = store.device
+    nmats = torch.empty((B, T), dtype=torch.int32, device=dev)
+    ops = torch.empty((B, T), dtype=torch.int8, device=dev)
+    lanes = torch.empty((5, B), dtype=torch.int32, device=dev)
+    summary = torch.empty(1, dtype=torch.int32, device=dev)
+    if B == 0:
+        summary.zero_()
+        return nmats, ops, lanes, summary
+    lib = _lib()
+    # the library launches on the current card: make it the tensors'
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.genarch_wfa_backtrace(
+            store.data_ptr(), fscore.data_ptr(), foff.data_ptr(),
+            plen.data_ptr(), tlen.data_ptr(), nmats.data_ptr(),
+            ops.data_ptr(), lanes.data_ptr(), summary.data_ptr(), B, Scap,
+            D, K0, x, o, e, T, stream)
+    BT_LAUNCHES += 1
+    _build.check(err, "wfa backtrace kernel")
+    return nmats, ops, lanes, summary

@@ -75,7 +75,8 @@ def test_a_call_is_one_root_tiled_by_its_phases(seed, n, length, err,
     assert {k: (len(v), sum(v)) for k, v in total.items()} == {
         "wfa.score_steps": (chunks, stats["score_steps"]),
         "wfa.lane_steps": (chunks, stats["lane_steps"]),
-        "wfa.resumes": (chunks, stats["resumes"])}
+        "wfa.resumes": (chunks, stats["resumes"]),
+        "wfa.bt_steps": (chunks, stats["bt_steps"])}
     if chunks == 1:   # the lock-step loop runs every lane every step
         assert stats["lane_steps"] == stats["score_steps"] * n
     if err == 0.45:

@@ -10,9 +10,15 @@ is unfinished) is held to the torch-op loop
 (`kernels/wfa.py::_forward_chunk_torch`): equal final scores and offsets,
 equal store words at every diagonal [lo, hi] of every score up to a
 pair's final score, and equal CIGARs from the model's store with every
-other cell filled with noise.  On the card (tests marked `card`, which
-skip without one), the kernel is held to the same torch-op loop run on
-the card.  This file imports no JAX: on the card run it with
+other cell filled with noise.  A scalar model of the backtrace kernel's
+walk (one pair at a time, as a thread takes it, reading one store word
+an active step) is held to the lock-step torch walk
+(`kernels/wfa.py::_wfa_backtrace`): equal records up to each pair's last
+step, zeros after, and equal CIGARs, also over the model's store with
+its noise, of which the walk reads no cell.  On the card (tests marked
+`card`, which skip without one), both kernels are held to the same
+torch-op versions run on the card.  This file imports no JAX: on the
+card run it with
 `python -m pytest tests/test_torch_wfa_kernel.py --noconftest -m card`.
 """
 
@@ -216,6 +222,67 @@ def model_chunk(pat, txt, plen, tlen, scap, x, o, e, red_len=0,
     return fw, [r[4] for r in res]
 
 
+def model_walk(store, fscore, foff, plen, tlen, K0, x, o, e, T):
+    """The backtrace kernel's walks, one pair at a time as a thread takes
+    it: from (final score, alignment diagonal, final offset) until the
+    walk finishes or takes T steps, reading one store word an active
+    step.  Returns (the longest walk, nmats (B, T), ops (B, T), lanes
+    (5, B): gap_t, gap_v, fm, fd, fi, and each pair's cells read as a
+    set of (score, diagonal index))."""
+    store = np.asarray(store)
+    B, Scap, D = store.shape
+    nmats = np.zeros((B, T), np.int32)
+    ops = np.zeros((B, T), np.int8)
+    lanes = np.zeros((5, B), np.int32)
+    reads = []
+    longest = 0
+    for b in range(B):
+        pl, tl = int(plen[b]), int(tlen[b])
+
+        def valid_loc(j, off):
+            return 0 < off - (j - K0) <= pl and 0 < off <= tl
+
+        jak = min(max(tl - pl + K0, 0), D - 1)
+        sc, j, off, bty = int(fscore[b]), jak, int(foff[b]), wfa.BT_M
+        valid = valid_loc(jak, off)
+        gap_t, gap_v = -1, 0
+        read = set()
+        t = 0
+        while t < T and off - (j - K0) > 0 and off > 0 and sc > 0:
+            now = valid_loc(j, off)
+            if not valid and now:
+                gap_t, gap_v = t, j - jak
+            valid = valid or now
+            cell = (min(max(sc, 0), Scap - 1), min(max(j, 0), D - 1))
+            read.add(cell)
+            word = int(store[(b, *cell)])
+            opm, opi, opd = word & 7, (word >> 3) & 1, (word >> 4) & 1
+            isM, isI, isD = bty == wfa.BT_M, bty == wfa.BT_I, bty == wfa.BT_D
+            if isM:
+                nmats[b, t] = word >> 8
+                off -= word >> 8
+            de = (isM and opm == wfa.C_DE) or (isD and opd == 0)
+            do = (isM and opm == wfa.C_DO) or (isD and opd == 1)
+            ie = (isM and opm == wfa.C_IE) or (isI and opi == 0)
+            io = (isM and opm == wfa.C_IO) or (isI and opi == 1)
+            mm = isM and opm == wfa.C_MM
+            if valid:
+                ops[b, t] = (wfa.OP_D if de or do else wfa.OP_I if ie or io
+                             else wfa.OP_X if mm else wfa.OP_NONE)
+            sc -= e if de or ie else o + e if do or io else x if mm else 0
+            j += 1 if de or do else -1 if ie or io else 0
+            off -= 1 if ie or io or mm else 0
+            bty = (wfa.BT_D if de else wfa.BT_I if ie
+                   else wfa.BT_M if do or io or mm else bty)
+            t += 1
+        longest = max(longest, t)
+        lanes[:, b] = (gap_t, gap_v, off if sc == 0 else 0,
+                       max(off - (j - K0), 0) if sc else 0,
+                       max(off, 0) if sc else 0)
+        reads.append(read)
+    return longest, nmats, ops, lanes, reads
+
+
 # ---------------------------------------------------------------------------
 # inputs and comparisons
 # ---------------------------------------------------------------------------
@@ -261,6 +328,34 @@ def cigars(fw, plen, tlen, x, o, e):
     res = wfa._wfa_backtrace(fw.store, fw.fscore, fw.foff, plen, tlen,
                              K0=fw.K0, x=x, o=o, e=e, max_steps=max_steps)
     return native.wfa_cigars(*[r.cpu().numpy() for r in res[1:]])
+
+
+def torch_walk(fw, plen, tlen, x, o, e, T):
+    """The lock-step torch walk over fw's store, at most T steps: (the
+    steps it ran, nmats, ops, lanes) as numpy arrays."""
+    ran, nmats, ops, *lanes = wfa._wfa_backtrace(
+        fw.store, fw.fscore, fw.foff, plen, tlen, K0=fw.K0, x=x, o=o, e=e,
+        max_steps=T)
+    return (ran, nmats.cpu().numpy(), ops.cpu().numpy(),
+            torch.stack(lanes).cpu().numpy())
+
+
+def assert_walk_equal(got, want, T):
+    """A kernel's (or the model's) walk `got` = (longest walk, nmats,
+    ops, lanes) against the torch walk's `want`: the records equal up to
+    the torch walk's steps and zero after, equal lanes, equal CIGARs,
+    and the torch walk stopped at the first flag read after the longest
+    walk's end."""
+    longest, nmats, ops, lanes = got
+    ran, w_nmats, w_ops, w_lanes = want
+    assert nmats.shape == ops.shape == (lanes.shape[1], T)
+    assert ran == min(wfa._round_up(longest + 1, wfa.BT_UNROLL), T)
+    np.testing.assert_array_equal(nmats[:, :ran], w_nmats)
+    np.testing.assert_array_equal(ops[:, :ran], w_ops)
+    assert not nmats[:, ran:].any() and not ops[:, ran:].any()
+    np.testing.assert_array_equal(lanes, w_lanes)
+    assert native.wfa_cigars(nmats, ops, *lanes) == \
+        native.wfa_cigars(w_nmats, w_ops, *w_lanes)
 
 
 def cells_mask(cells, fscore, shape):
@@ -434,6 +529,123 @@ def test_wrapper_checks_its_inputs(bad, match):
         wfa_cuda._check(*bad(t))
 
 
+@pytest.mark.parametrize("case", CASES, ids=case_ids())
+def test_walk_model_equals_torch_walk(case):
+    """The scalar model of the backtrace kernel against the lock-step
+    torch walk, both over the torch-op loop's store."""
+    _, pairs, (x, o, e), (rl, rd), scap = case
+    pat, txt, plen, tlen = chunk_arrays(pairs)
+    t = [torch.from_numpy(a) for a in (pat, txt, plen, tlen)]
+    fw = wfa._forward_chunk_torch(*t, scap, x, o, e, rl, rd)
+    T = wfa._backtrace_steps(fw, x, e)
+    got = model_walk(fw.store.numpy(), fw.fscore, fw.foff, plen, tlen,
+                     fw.K0, x, o, e, T)
+    assert_walk_equal(got[:4], torch_walk(fw, t[2], t[3], x, o, e, T), T)
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_ids())
+def test_walk_model_reads_only_written_cells(case):
+    """Over the score-loop model's store, noise wherever the kernel
+    writes nothing, the walk model reads only cells the score loop wrote
+    (diagonals [lo, hi] of scores up to the pair's final score) and
+    gives the torch walk's records over the torch-op loop's store."""
+    _, pairs, (x, o, e), (rl, rd), scap = case
+    pat, txt, plen, tlen = chunk_arrays(pairs)
+    t = [torch.from_numpy(a) for a in (pat, txt, plen, tlen)]
+    want = wfa._forward_chunk_torch(*t, scap, x, o, e, rl, rd)
+    fw, cells = model_chunk(pat, txt, plen, tlen, scap, x, o, e, rl, rd,
+                            seed=len(pairs))
+    T = wfa._backtrace_steps(fw, x, e)
+    got = model_walk(fw.store.numpy(), fw.fscore, fw.foff, plen, tlen,
+                     fw.K0, x, o, e, T)
+    fscore = fw.fscore.tolist()
+    for b, read in enumerate(got[4]):
+        assert all(cell in cells[b] and cell[0] <= fscore[b]
+                   for cell in read), f"pair {b} read an unwritten cell"
+    assert_walk_equal(got[:4], torch_walk(want, t[2], t[3], x, o, e, T), T)
+
+
+def random_walk_inputs(seed, B=96, Scap=40, D=48, K0=20):
+    """A store of random op codes and runs at every cell, with random
+    lengths, final scores and offsets, some of them past the sequences'
+    ends: walks that start outside the alignment, so that the op
+    suppression and the one invalid -> valid gap (which exact stores
+    never reach) run, and walks that leave the store's diagonals.
+    Returns a `_Forward` and (plen, tlen)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, Scap, D)
+    word = (rng.integers(0, 5, shape) | rng.integers(0, 2, shape) << 3
+            | rng.integers(0, 2, shape) << 4 | rng.integers(0, 4, shape) << 8)
+    plen, tlen = (torch.from_numpy(rng.integers(0, 30, B).astype(np.int32))
+                  for _ in range(2))
+    fscore = torch.from_numpy(rng.integers(0, Scap, B).astype(np.int32))
+    foff = torch.from_numpy(rng.integers(0, 40, B).astype(np.int32))
+    fw = wfa._Forward(torch.from_numpy(word.astype(np.int32)), fscore, foff,
+                      K0, Scap, int(fscore.max()), 0, 0, 0)
+    return fw, plen, tlen
+
+
+RANDOM_WALKS = [(31, (4, 6, 2)), (32, (1, 1, 1)), (33, (0, 6, 2)),
+                (34, (4, 6, 0))]
+
+
+@pytest.mark.parametrize("seed,pen", RANDOM_WALKS)
+def test_walk_model_equals_torch_walk_on_random_stores(seed, pen):
+    """The walk model against the torch walk where every branch of the
+    walk runs, to the store's height."""
+    fw, plen, tlen = random_walk_inputs(seed)
+    x, o, e = pen
+    want = torch_walk(fw, plen, tlen, x, o, e, fw.scap)
+    assert (want[3][0] >= 0).any(), "no walk met the invalid -> valid gap"
+    got = model_walk(fw.store.numpy(), fw.fscore, fw.foff, plen, tlen,
+                     fw.K0, x, o, e, fw.scap)
+    assert_walk_equal(got[:4], want, fw.scap)
+
+
+def test_cpu_tensors_run_the_torch_walk(monkeypatch):
+    """CPU tensors never reach the backtrace kernel's wrapper, and the
+    run counts the lock-step walk's steps."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel was called for CPU tensors")
+    monkeypatch.setattr(wfa_cuda, "wfa_backtrace", refuse)
+    stats = {}
+    got = wfa.wfa_batch(seqpairs(pairs_of(20, 4, 50, 0.1)), device="cpu",
+                        stats=stats)
+    assert len(got) == 4 and all(got)
+    assert stats["bt_steps"] % wfa.BT_UNROLL == 0 and stats["bt_steps"] > 0
+
+
+def test_backtrace_wrapper_refuses_cpu_tensors():
+    fw = wfa._forward_chunk_torch(
+        *(torch.from_numpy(a) for a in chunk_arrays(
+            pairs_of(21, 2, 30, 0.1))), 64, 4, 6, 2, 0, 0)
+    lens = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        wfa_cuda.wfa_backtrace(fw.store, fw.fscore, fw.foff, lens, lens,
+                               fw.K0, 4, 6, 2, 8)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda a: dict(a, store=a["store"].long()),
+     "store must be a contiguous"),
+    (lambda a: dict(a, store=a["store"].transpose(1, 2)),
+     "store must be a contiguous"),
+    (lambda a: dict(a, foff=a["foff"][:1]), "foff must be a contiguous"),
+    (lambda a: dict(a, tlen=a["tlen"].long()), "tlen must be a contiguous"),
+    (lambda a: dict(a, K0=a["store"].shape[2]), "K0 .* must lie in"),
+    (lambda a: dict(a, T=-1), "T -1 >= 0"),
+])
+def test_backtrace_wrapper_checks_its_inputs(bad, match):
+    """Types, shapes, layout and the geometry are checked before any
+    pointer reaches the backtrace kernel."""
+    fw, plen, tlen = random_walk_inputs(35, B=4)
+    args = dict(store=fw.store, fscore=fw.fscore, foff=fw.foff, plen=plen,
+                tlen=tlen, K0=fw.K0, T=8)
+    wfa_cuda._check_backtrace(**args)
+    with pytest.raises(ValueError, match=match):
+        wfa_cuda._check_backtrace(**bad(args))
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -561,12 +773,99 @@ def test_kernel_with_its_rings_in_device_memory_on_card(card):
 
 @pytest.mark.card
 def test_two_shards_of_one_card(card):
-    """`wfa_batch(mesh=)` with two shards on the one card: one kernel a
-    shard's chunk, the CIGARs those of the CPU run."""
+    """`wfa_batch(mesh=)` with two shards on the one card: one score-loop
+    kernel a shard's chunk (and its resumes) and one backtrace kernel,
+    the CIGARs those of the CPU run."""
     from genarchbench_tpu_torch.sharding.mesh import Mesh
     sp = seqpairs(pairs_of(18, 200, 100, 0.08))
     dev = torch.device("cuda", 0)
-    launches = wfa_cuda.LAUNCHES
+    launches, bt_launches = wfa_cuda.LAUNCHES, wfa_cuda.BT_LAUNCHES
     got = wfa.wfa_batch(sp, mesh=Mesh((dev, dev)))
     assert wfa_cuda.LAUNCHES >= launches + 2
+    assert wfa_cuda.BT_LAUNCHES == bt_launches + 2
     assert got == wfa.wfa_batch(sp, device="cpu")
+
+
+def backtrace_kernel_vs_torch_walk(fw, plen, tlen, x, o, e, mask=None):
+    """The backtrace kernel and the lock-step torch walk on the card over
+    the store of the kernel's score loop `fw`: equal records up to each
+    pair's last step, zeros after, and equal CIGARs, in one launch.  With
+    a mask, every other cell of the store is overwritten with noise
+    before the kernel's launch (the torch walk reads the store as the
+    score loop left it)."""
+    T = wfa._backtrace_steps(fw, x, e)
+    want = torch_walk(fw, plen, tlen, x, o, e, T)
+    store = fw.store
+    if mask is not None:
+        gen = torch.Generator(device=store.device).manual_seed(T)
+        noise = torch.randint(-(1 << 31), 1 << 31, store.shape,
+                              dtype=torch.int64, device=store.device,
+                              generator=gen).to(torch.int32)
+        store = torch.where(mask.to(store.device), store, noise)
+        del noise
+    launches = wfa_cuda.BT_LAUNCHES
+    nmats, ops, lanes, steps = wfa_cuda.wfa_backtrace(
+        store, fw.fscore, fw.foff, plen, tlen, fw.K0, x, o, e, T)
+    assert wfa_cuda.BT_LAUNCHES == launches + 1
+    torch.cuda.synchronize()
+    assert_walk_equal((int(steps), nmats.cpu().numpy(), ops.cpu().numpy(),
+                       lanes.cpu().numpy()), want, T)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("case", CASES, ids=case_ids())
+def test_backtrace_kernel_equals_torch_walk_on_card(card, case):
+    """Every case: the backtrace kernel over the score-loop kernel's
+    store, as written and with its unwritten cells noise."""
+    _, pairs, (x, o, e), (rl, rd), scap = case
+    arrays = chunk_arrays(pairs)
+    model, cells = model_chunk(*arrays, scap, x, o, e, rl, rd)
+    t = on_card(arrays)
+    fw = wfa._forward_chunk(*t, scap, x, o, e, rl, rd)
+    assert fw.store.shape == model.store.shape
+    mask = cells_mask(cells, model.fscore.tolist(), model.store.shape)
+    for noise in (None, mask):
+        backtrace_kernel_vs_torch_walk(fw, t[2], t[3], x, o, e, noise)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("seed,pen", RANDOM_WALKS)
+def test_backtrace_kernel_on_random_stores_on_card(card, seed, pen):
+    """The backtrace kernel against the torch walk where every branch of
+    the walk runs."""
+    fw, plen, tlen = random_walk_inputs(seed)
+    fw = fw._replace(store=fw.store.cuda(), fscore=fw.fscore.cuda(),
+                     foff=fw.foff.cuda(), max_score=fw.scap)
+    backtrace_kernel_vs_torch_walk(fw, plen.cuda(), tlen.cuda(), *pen)
+
+
+@pytest.mark.card
+def test_backtrace_kernel_on_a_benchmark_batch_on_card(card):
+    """A 4,096-pair chunk of one batch of the benchmark's `pairs-96`
+    traffic: the backtrace kernel against the torch walk, as written and
+    over noise; then the entry launches it once a chunk and gives the
+    CPU run's CIGARs."""
+    import json
+    from h100_bench.generators.pairs import batches
+    root = pathlib.Path(__file__).resolve().parent.parent
+    traffic = json.loads((root / "h100_bench" / "traffic" /
+                          "pairs-96.json").read_text())
+    batch = next(iter(batches(traffic, 2147483713, [0])))
+    pairs = SeqPairs(batch.patterns()[:4096], batch.texts()[:4096])
+    arrays = chunk_arrays(list(zip(pairs.patterns, pairs.texts)))
+    x, o, e = 4, 6, 2
+    t = on_card(arrays)
+    fw = wfa._forward_chunk(*t, 128, x, o, e, 0, 0)
+    mask = plain_mask(fw.fscore.tolist(), fw.K0, *fw.store.shape[1:], x, o,
+                      e)
+    for noise in (None, mask):
+        backtrace_kernel_vs_torch_walk(fw, t[2], t[3], x, o, e, noise)
+    del mask
+    stats = {}
+    launches = wfa_cuda.BT_LAUNCHES
+    got = wfa.wfa_batch(pairs, device="cuda", stats=stats, max_batch=1024)
+    assert stats["chunks"] == 4
+    assert wfa_cuda.BT_LAUNCHES == launches + stats["chunks"]
+    assert 0 < stats["bt_steps"] <= 4 * wfa._backtrace_steps(fw, x, e)
+    sub = SeqPairs(pairs.patterns[:512], pairs.texts[:512])
+    assert got[:512] == wfa.wfa_batch(sub, device="cpu")
