@@ -29,13 +29,12 @@ import numpy as np
 import torch
 
 from genarchbench_tpu_torch.core.backend import resolve_device
-from genarchbench_tpu_torch.core.roi import ROITimer
+from genarchbench_tpu_torch.core.roi import ROITimer, count, span
 from genarchbench_tpu_torch.io.bsw_io import BswPairs, read_bsw_pairs
 from genarchbench_tpu_torch.kernels.bsw_cuda import (AMBIG_SENTINEL,
                                                      bsw_scores)
 from genarchbench_tpu_torch.sharding.mesh import (Mesh, data_mesh, device_scope,
-                                                  gather_shards, mesh_devices,
-                                                  shard_args)
+                                                  mesh_devices, shard_index)
 
 LANES = 8            # SIMD_WIDTH16 of the reference SSE2 build
 # base codes on the device: bases 0-3, DUMMY1/DUMMY2 ref/query padding
@@ -144,29 +143,54 @@ def bsw_batch(pairs: BswPairs, batch_size: int = 512,
     membership and hence the group-shared band: SIMD_WIDTH16 = 8 for
     the int16 path (default), SIMD_WIDTH8 = 16 for the int8 path
     (bandedSWA.h:79-80, SSE build) — see run()'s -i8 flag.  With a mesh
-    the groups split over its devices (`shard_args`) and the kernel runs
+    the groups split over its devices (`shard_index`) and the kernel runs
     on each shard: the hand kernel on a card, the plain version on a CPU
-    shard."""
-    devs = mesh_devices(mesh, device)
-    scores = np.zeros(len(pairs), np.int32)
-    if not len(pairs):
+    shard.
+
+    The call is the span `bsw.batch`, tiled by `bsw.prep`
+    (`kernel_inputs`) and by each shard's `bsw.h2d` (its inputs to its
+    device; the last one also releases the host planes), `bsw.kernel`
+    (the launch; the last shard's span drains every card, so that it
+    ends when the kernels have) and `bsw.d2h` (the scores back and put
+    in input order), with the counts `bsw.pairs` and `bsw.groups` (the
+    rows of `group_pairs`) under it.  Every shard's kernel is launched
+    before any result is read back."""
+    with span("bsw.batch"):
+        devs = mesh_devices(mesh, device)
+        scores = np.zeros(len(pairs), np.int32)
+        if not len(pairs):
+            return scores
+        _, mis, amb = fill_scmat(match, mismatch, ambig)
+        with span("bsw.prep"):
+            src, arrays = kernel_inputs(pairs, batch_size, lanes, match,
+                                        end_bonus, o_ins, e_ins, o_del,
+                                        e_del, w)
+            parts = (shard_index(len(src), mesh) if mesh is not None
+                     else [slice(None)])
+        count("bsw.pairs", len(pairs))
+        count("bsw.groups", len(src))
+        outs = []
+        for k, (dev, ix) in enumerate(zip(devs, parts)):
+            last = k == len(devs) - 1
+            with span("bsw.h2d"), device_scope(dev):
+                args = [torch.from_numpy(np.ascontiguousarray(a[ix]))
+                        .to(dev) for a in arrays]
+                if last:        # the host planes, once on every device
+                    del arrays
+            with span("bsw.kernel"), device_scope(dev):
+                outs.append(bsw_scores(
+                    *args, match=match, mismatch=mis, ambig=amb,
+                    o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
+                    zdrop=zdrop, w=w)[0])
+                if last:
+                    for d in {d for d in devs if d.type == "cuda"}:
+                        torch.cuda.current_stream(d).synchronize()
+        for out, ix in zip(outs, parts):
+            with span("bsw.d2h"):
+                part = src[ix]
+                valid = part >= 0
+                scores[part[valid]] = out.cpu().numpy()[valid]
         return scores
-    _, mis, amb = fill_scmat(match, mismatch, ambig)
-    src, arrays = kernel_inputs(pairs, batch_size, lanes, match, end_bonus,
-                                o_ins, e_ins, o_del, e_del, w)
-    shards = (zip(*shard_args(mesh, *arrays)) if mesh is not None else
-              [[torch.from_numpy(a).to(devs[0]) for a in arrays]])
-    outs = []
-    for dev, args in zip(devs, shards):
-        with device_scope(dev):
-            outs.append(bsw_scores(*args, match=match, mismatch=mis,
-                                   ambig=amb, o_del=o_del, e_del=e_del,
-                                   o_ins=o_ins, e_ins=e_ins, zdrop=zdrop,
-                                   w=w)[0])
-    out = gather_shards(outs, src.shape[0]).numpy()
-    valid = src >= 0
-    scores[src[valid]] = out[valid]
-    return scores
 
 
 def cell_updates(pairs: BswPairs, w: int = 100) -> int:

@@ -1,0 +1,14 @@
+"""The kernel layer's share of the window: the program's spans
+`bsw.kernel` (the groups' order and the launch of `csrc/bsw.cu`, drained
+before the span ends), over the summed wall time of the window's
+batches.  Nothing to read where the program keeps no `bsw.batch` root
+tiled by its phases (`bsw.kernel` no child of one)."""
+
+from h100_bench.harness.spans import window_spans
+
+
+def read(run):
+    w = window_spans(run)
+    if w is None or "kernel" not in w.phase_s:
+        return None
+    return w.share(("kernel",))
