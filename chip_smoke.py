@@ -48,11 +48,15 @@ Phases (any failure exits non-zero and prints no result):
      C deferrals), its kernel launches per anchor step (torch.profiler's
      cudaLaunch* calls inside the `chain.loop` span) and the card's busy
      share;
-  8. fast-chain: `cli run fast-chain` on the same input, the first 1024
-     records held exactly to the port's CPU run (and three small inputs
-     whole), then the same split and launch counts by tile, far pass
-     and near pass.  A busy share is the card's activity in one run
-     under torch.profiler over that run's own wall time;
+  8. fast-chain (the anchor loop a hand kernel, csrc/fast_chain.cu):
+     `cli run fast-chain` on the same input, the first 1024 records held
+     exactly to the port's CPU run (and three small inputs whole), then
+     the same split and launch counts by tile, far pass and near pass,
+     the kernel's launches a plan and a near step, its ms on a
+     4096-record plan between CUDA events beside the torch-op loop's on
+     the same plan (equal outputs) and its ptxas lines.  A busy share is
+     the card's activity in one run under torch.profiler over that run's
+     own wall time;
   9. fmi (torch ops, no hand kernel): the JAX bench's input (2 Mbp
      reference, 250,000 reads of 100 bases, seed 106) through `cli run
      fmi` twice, first from the fasta (the index built on the fly), then
@@ -301,6 +305,9 @@ def kernel_name(mangled: str) -> str:
         return (f"bpm_wavefront<S={tmpl.group(2)}>"
                 if tmpl.group(1) == "bpm_wavefront"
                 else f"bsw_rows<K={tmpl.group(2)}>")
+    tmpl = re.search(r"fast_chain_kernelILb([01])E", mangled)
+    if tmpl:
+        return f"fast_chain_kernel<shared={tmpl.group(1)}>"
     for short in ("bpm_pack_codes", "bpm_generic", "bsw_wide_kernel",
                   "wfa_forward_kernel", "wfa_backtrace_kernel"):
         if short in mangled:
@@ -1085,13 +1092,16 @@ def chain_phase(card: str, bench_path: pathlib.Path):
 def fast_chain_phase(card: str, bench_path: pathlib.Path, records):
     """fast-chain through `cli run fast-chain` at the bench input, its
     first 1024 records held exactly to the port's CPU run, and three
-    small inputs whole; then a warm run's split and its launches by tile,
-    far pass and near pass."""
+    small inputs whole; then a warm run's split, its launches by tile,
+    far pass and near pass, and the kernel alone on the first plan."""
     import numpy as np
     import torch
     from genarchbench_tpu_torch.core.check import check_exact
     from genarchbench_tpu_torch.io import chain_io
-    from genarchbench_tpu_torch.kernels import fast_chain
+    from genarchbench_tpu_torch.kernels import (_build, fast_chain,
+                                                fast_chain_cuda)
+    from genarchbench_tpu_torch.kernels.chain import MAX_ITER
+    from genarchbench_tpu_torch.sharding.batching import plan_batches
 
     ci = input_module("torch_chain_inputs")
     cases = [("bench", None, 1024), ("ties", ci.tie_text(), None),
@@ -1130,7 +1140,35 @@ def fast_chain_phase(card: str, bench_path: pathlib.Path, records):
     fast_chain.fast_chain_batch(records)
     wall_ms = (time.perf_counter() - t0) * 1e3
     stats = {}
+    fast_chain_cuda.LAUNCHES = 0
     fast_chain.fast_chain_batch(records, stats=stats)
+    if fast_chain_cuda.LAUNCHES != stats["plans"]:
+        fail(f"fast-chain: {fast_chain_cuda.LAUNCHES} kernel launches for "
+             f"{stats['plans']} plans")
+    # the kernel alone on the first plan (the longest records), beside
+    # the torch-op loop on the same plan
+    flat = chain_io.FlatRecords.of(records, MAX_ITER)
+    plan = plan_batches(flat.n, fast_chain.CELL_BUDGET,
+                        fast_chain.MAX_BATCH)[0]
+    host, _ = fast_chain.plan_inputs(flat, np.asarray(plan.indices),
+                                     plan.length)
+    _, steps, chunks = host
+    (x_lo, qi, q_span, _, st), mdxy, bw, avg = fast_chain._upload(host,
+                                                                  "cuda")
+    kargs = (x_lo, qi, q_span, st, mdxy, bw, avg, steps)
+    kernel_ms = event_ms(lambda: fast_chain_cuda.fast_chain(*kargs), 20)
+    got = fast_chain_cuda.fast_chain(*kargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fast_chain._fast_chain_device(x_lo, qi, q_span, st, mdxy, bw, avg,
+                                         steps, chunks)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("fast-chain: the kernel's scores and parents vs the torch-op "
+             "loop's on the first plan")
+    ptxas = [ln for ln in ptxas_summary(_build.build_dir() / "ptxas.txt")
+             if ln.startswith("fast_chain")]
     prof, prof_ms = profiled(lambda: fast_chain.fast_chain_batch(records))
     far = launches_in_spans(prof, "fast_chain.far")
     near = launches_in_spans(prof, "fast_chain.near")
@@ -1152,6 +1190,11 @@ def fast_chain_phase(card: str, bench_path: pathlib.Path, records):
                launches_per_near_step=near / stats["near_steps"],
                profiled_device_ms=dev_ms, device_events=events,
                profiled_ms=prof_ms, device_busy_share=dev_ms / prof_ms,
+               kernel_launches_per_near_step=(
+                   stats["plans"] / stats["near_steps"]),
+               kernel_ms_plan0=kernel_ms, torch_loop_ms_plan0=plain_ms,
+               plan0_records=len(plan.indices), plan0_length=plan.length,
+               plan0_steps=steps, kernel_ptxas=ptxas,
                cli_roi_s=roi_s, cells_per_s_roi=cells / roi_s,
                cells_per_s=cells / (wall_ms / 1e3), peak_gb=peak_gb,
                bound_ms=b_ms, bound_by=b_by, card=card)
@@ -1169,6 +1212,12 @@ def fast_chain_phase(card: str, bench_path: pathlib.Path, records):
           f"{row['device_busy_share']:.1%} of its {prof_ms:.1f} ms; "
           f"{row['cells_per_s_roi']:.3e} cells/s over the CLI's ROI; "
           f"bound {b_ms:.4f} ms ({b_by}); peak {peak_gb:.2f} GB")
+    print(f"fast-chain kernel: 1 launch a plan, "
+          f"{row['kernel_launches_per_near_step']:.4f} a near step; the "
+          f"first plan ({len(plan.indices)} records, N {plan.length}, "
+          f"{steps} steps): kernel {kernel_ms:.4f} ms (CUDA events, mean "
+          f"of 20), torch-op loop {plain_ms:.1f} ms, equal; ptxas: "
+          + " | ".join(ptxas))
     return row
 
 

@@ -24,21 +24,13 @@ from genarchbench_tpu_torch.kernels import chain, fast_chain
 from genarchbench_tpu_torch.sharding.batching import plan_batches
 from genarchbench_tpu_torch.sharding.mesh import data_mesh, shard_items
 from tests.synth import gen_chain_input
-from tests.torch_chain_inputs import (chain_text, clz_text, deferral_text,
-                                      dense_text, ont_like_text,
+from tests.torch_chain_inputs import (clz_text, deferral_text, dense_text,
+                                      empty_single_text, ont_like_text,
                                       skip_break_text, sr_like_text, tie_text,
                                       wrap_text)
 
 # tests/test_chain.py's sets: (seed, records, anchors, segments)
 DATASETS = [(0, 10, 100, 1), (1, 25, 400, 1), (2, 8, 300, 2)]
-
-
-def empty_single_text():
-    text = gen_chain_input(np.random.default_rng(7), n_records=3,
-                           max_anchors=2)
-    return text + chain_text([(20.5, 5000, 5000, 500, 1, [], []),
-                              (12.0, 5000, 5000, 500, 1, [40],
-                               [(15 << 32) | 9])])
 
 
 INPUTS = {
@@ -47,7 +39,7 @@ INPUTS = {
        for s, nr, ma, ns in DATASETS},
     "skip-break": skip_break_text,
     "ties": tie_text,
-    "empty-single": empty_single_text,
+    "empty-single": lambda: empty_single_text(gen_chain_input),
     "deferral": deferral_text,
     "dense": dense_text,
     "u32-wrap": wrap_text,

@@ -3,7 +3,8 @@
 Exact comparisons: `fast_chain_batch`'s scores and parents against the
 JAX function's, the CLI's output file against the JAX CLI's byte for
 byte, and a scalar Python model of the reference loop
-(fast-chain/src/host_kernel.cpp:803-866) on small inputs.
+(fast-chain/src/host_kernel.cpp:803-866, `reference` in
+tests/test_torch_fast_chain_kernel.py) on small inputs.
 """
 
 import numpy as np
@@ -12,10 +13,10 @@ import pytest
 from genarchbench_tpu.kernels import fast_chain as jfc
 from genarchbench_tpu_torch import cli
 from genarchbench_tpu_torch.kernels import fast_chain
-from genarchbench_tpu_torch.kernels.chain import MAX_ITER
 from genarchbench_tpu_torch.sharding.batching import plan_batches
 from tests.synth import gen_chain_input
 from tests.test_torch_chain import INPUTS, assert_same, records
+from tests.test_torch_fast_chain_kernel import reference
 from tests.torch_chain_inputs import boundary_text, clz_text
 
 # tests/test_fast_chain.py's sets: (seed, records, anchors)
@@ -26,39 +27,6 @@ FAST_INPUTS = {
     **{k: INPUTS[k] for k in ("skip-break", "ties", "empty-single",
                               "deferral", "dense", "u32-wrap")},
 }
-
-
-def reference(rec):
-    """The reference's scalar loop, its f32 gap cost from
-    `clin_table_f32`: (scores, parents)."""
-    n = rec.n
-    x, q, sp, st = (a.tolist() for a in (rec.x_lo, rec.qi, rec.q_span,
-                                         rec.window_starts(MAX_ITER)))
-    mdxy = min(rec.max_dist_x, rec.max_dist_y)
-    clin = fast_chain.clin_table_f32(rec.avg_qspan, rec.bw + 1)
-    scores = np.zeros(n, np.int64)
-    parents = np.full(n, -1, np.int64)
-
-    def i32(v):
-        return (v + 2**31) % 2**32 - 2**31
-
-    for i in range(n):
-        max_f, max_j = sp[i], -1
-        for j in range(i - 1, st[i] - 1, -1):
-            dr = i32(x[i] - x[j])
-            dq = i32(q[i] - q[j])
-            if dr == 0 or dq <= 0 or dq > mdxy:
-                continue
-            dd = abs(dr - dq)
-            if dd > rec.bw:
-                continue
-            log_dd = dd.bit_length() - 1 if dd else 0
-            sc = min(dq, dr, sp[i]) - (int(clin[dd]) + (log_dd >> 1)) \
-                + scores[j]
-            if sc > max_f:
-                max_f, max_j = sc, j
-        scores[i], parents[i] = max_f, max_j
-    return scores, parents
 
 
 @pytest.mark.parametrize("name", list(FAST_INPUTS))

@@ -71,6 +71,16 @@ def tie_text():
                        (33.5, 5000, 5000, 500, 1, xs[100:300], y[100:300])])
 
 
+def empty_single_text(gen_chain_input):
+    """Three short records from tests/synth.py's `gen_chain_input`, then a
+    record of no anchor and one of a single anchor."""
+    text = gen_chain_input(np.random.default_rng(7), n_records=3,
+                           max_anchors=2)
+    return text + chain_text([(20.5, 5000, 5000, 500, 1, [], []),
+                              (12.0, 5000, 5000, 500, 1, [40],
+                               [(15 << 32) | 9])])
+
+
 def deferral_text():
     """avg_qspan 450 and 600.25 (their products pass SAFE_PROD) and
     104.487175 (more than CORR_K corrections) beside records that stay
